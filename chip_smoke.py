@@ -9,22 +9,40 @@ JAX or of the JAX package, and exits non-zero on any failure.  Phases, one
 line or more each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds ``ops/csrc/window_kernel.cu`` for sm_90a, with the
-   ptxas register and shared-memory lines;
-3. kernel vs plain version: the CUDA window kernel against its plain
+2. build: nvcc builds every ``ops/csrc/*.cu`` for sm_90a, one process per
+   source, all started together, with the ptxas register and
+   shared-memory lines;
+3. CRF kernel vs plain version: the CUDA window kernel against its plain
    PyTorch version on the same state and draws, at the headline geometry
    (768 chains on a 512 x 512 grid, blocks up to 80), with both times per
    launch from CUDA events;
 4. irfft2 on the card against the CPU on the same half-spectrum noise;
-5. main path: ChainCRF -> MultiChainSampler(chain, 768) -> init(seeds=0)
-   -> run(3 segments x 500 iterations) -> diagnostics, checking that every
-   step launched the kernel, the loss is finite and falls, acceptance is
-   in (0.02, 0.98) and the bed outside the update region is untouched;
-   then a short profiled window for the device's busy share.
+5. CRF main path: ChainCRF -> MultiChainSampler(chain, 768) ->
+   init(seeds=0) -> run(3 segments x 500 iterations) -> diagnostics,
+   checking that every step launched the kernel, the loss is finite and
+   falls, acceptance is in (0.02, 0.98) and the bed outside the update
+   region is untouched; then a short profiled window for the device's
+   busy share;
+6. SGS kernels vs plain versions: 10 steps at the SGS headline (512
+   chains on the same 512 x 512 grid), the state advancing on the
+   kernels' results: window extract and writeback bitwise, the inverse
+   LUT bitwise (or within 1 ulp, counted), the mixture CG within rtol /
+   atol 2e-4 and, run to convergence, within 2e-3 of a float64 solve for
+   a sample of chains, and a plain step from the same state and draws
+   flipping at most 1e-3 of the MH decisions; both times per launch;
+7. SGS main path: ChainSGS -> MultiChainSampler(chain, 512) ->
+   init(seeds=0) -> run(3 segments x 400 iterations) -> diagnostics,
+   checking that each of the four kernels ran once per step, the loss is
+   finite and falls, acceptance is in (0.02, 0.98), the bed beyond every
+   block's reach is untouched and the patched residual equals a full-grid
+   recompute; then a profiled window.
 
-The problem is the headline of ``bench.py`` (its ``build_problem`` and
-``make_chain``): Matérn nu=1.3 CRF_weight proposals, block menu 50-80 in 5
-steps.  The second-to-last line is a JSON object describing the kernel;
+The problems are ``bench.py``'s headlines (its ``build_problem``,
+``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
+proposals with block menu 50-80 in 5 steps; and the SGS chain at the
+reference's production settings (blocks 5-20, 48 neighbours within
+30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
+10 km).  The second-to-last line is a JSON object describing the kernels;
 the last line is the JSON contract ``{"ok": true, "device": ...}``.
 """
 
@@ -35,6 +53,7 @@ import time
 
 import numpy as np
 
+DEVICE = "cuda"  # every phase runs on the card (phase_device insists)
 GRID = 512
 N_CHAINS = 768
 SIGMA_MC = 5.0
@@ -42,6 +61,12 @@ RES = 500.0
 PARITY_STEPS = 20
 SEGMENTS = 3
 SEGMENT = 500
+SGS_CHAINS = 512
+SGS_PARITY_STEPS = 10
+SGS_SEGMENTS = 3
+SGS_SEGMENT = 400
+KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
+                  "lut_kernel")
 
 # kernel vs plain version bounds
 FLIP_RATE_MAX = 1e-3     # MH decisions that differ (f32 sums in another order)
@@ -49,6 +74,14 @@ DELTA_REL_MAX = 1e-4     # delta error relative to the block loss it sums
 FIELD_RTOL, FIELD_ATOL = 5e-5, 1e-3
 HBM_GBS = 3350           # H100 SXM device-memory bandwidth (data sheet)
 IRFFT_REL_MAX = 1e-5     # card vs a float64 transform, relative to field rms
+SLEEP_CYCLES = 50_000_000  # ~25 ms of device spin ahead of a timed loop
+# SGS kernels vs plain versions
+CG_RTOL = CG_ATOL = 2e-4  # same sums in the same order; expf may round apart
+CG_F64_TOL = 2e-3        # kernel run to convergence vs a float64 solve
+CG_F64_CHAINS = 16       # the sample of chains solved in float64
+CG_CONVERGED_ITERS = 512  # the production 64 stop short of convergence
+LUT_ULP_MAX = 1
+RESID_RTOL, RESID_ATOL = 2e-3, 2e-2  # patched vs full-grid residual
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -99,6 +132,30 @@ def make_chain(p):
     return chain
 
 
+def make_sgs_chain(p):
+    """The SGS chain at bench.py's production configuration
+    (smallScaleChain_multiprocessing.py:403-585: blocks 5-20,
+    set_sgs_param(48, 30e3), detrend + 1000-quantile transform)."""
+    from scipy.ndimage import gaussian_filter
+
+    from mcmc_tpu_torch import ChainSGS, NormalScoreTransform
+
+    chain = ChainSGS(p["xx"], p["yy"], p["initial_bed"], p["surf"],
+                     p["velx"], p["vely"], p["dhdt"], p["smb"],
+                     p["cond_bed"], p["data_mask"], p["grounded"],
+                     p["resolution"])
+    chain.set_update_region(True, p["region"])
+    chain.set_loss_type(sigma_mc=SIGMA_MC, massConvInRegion=True)
+    trend = gaussian_filter(p["initial_bed"], sigma=10).astype(np.float32)
+    chain.set_trend(trend, detrend_map=True)
+    nst = NormalScoreTransform.fit((p["initial_bed"] - trend).ravel(), 1000)
+    chain.set_normal_transformation(nst, do_transform=True)
+    chain.set_variogram("Matern", 10e3, 1.0, 0.0, vario_smoothness=1.3)
+    chain.set_sgs_param(48, 30e3)
+    chain.set_block_sizes(5, 20, 5, 20)
+    return chain
+
+
 def phase_device():
     import torch
 
@@ -118,15 +175,20 @@ def phase_device():
 
 
 def phase_build():
-    from mcmc_tpu_torch.ops.cuda_build import load_library
+    from mcmc_tpu_torch.ops.cuda_build import load_libraries
 
-    kl = load_library("window_kernel")
-    print(f"[build] {kl.path.name}: nvcc {kl.build_seconds:.2f} s",
-          flush=True)
-    for line in kl.ptxas:
-        print(f"[build] {line}", flush=True)
-    if not any("Used" in line for line in kl.ptxas):
-        raise RuntimeError("nvcc printed no ptxas resource line")
+    t0 = time.perf_counter()
+    libs = load_libraries(KERNEL_SOURCES)
+    print(f"[build] {len(libs)} sources in parallel: "
+          f"{time.perf_counter() - t0:.2f} s wall", flush=True)
+    for name, kl in libs.items():
+        print(f"[build] {kl.path.name}: nvcc {kl.build_seconds:.2f} s",
+              flush=True)
+        for line in kl.ptxas:
+            print(f"[build]   {line}", flush=True)
+        if not any("Used" in line for line in kl.ptxas):
+            raise RuntimeError(f"nvcc printed no ptxas resource line for "
+                               f"{name}")
 
 
 def _block_losses(fields_old, geom, consts):
@@ -163,19 +225,26 @@ def _window_bytes(geom, acc, B, n_const=6):
     return 4.0 * float((reads + writes).sum())
 
 
-def _time_per_launch(fn, n=20):
+def _time_ops(fn, ops):
+    """Mean ms per launch of ``fn(*op)`` over the recorded operands in
+    turn, from CUDA events, after one warm-up launch.  The card first
+    spins for ~25 ms (``torch.cuda._sleep``) so that the host queues the
+    launches ahead of it and the events time the device's back-to-back
+    work rather than the host's launch rate; a plain version whose many
+    small launches outrun that head start is timed in part on the host."""
     import torch
 
-    fn()  # warm
+    fn(*ops[0])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
-    for _ in range(n):
-        fn()
+    for op in ops:
+        fn(*op)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return start.elapsed_time(end) / len(ops)
 
 
 def phase_kernel_vs_plain(chain, card):
@@ -187,7 +256,7 @@ def phase_kernel_vs_plain(chain, card):
         fused_window_update, fused_window_update_reference)
     from mcmc_tpu_torch.utils.rng import make_generator
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     static, consts = chain.build(dev)
     state = init_state(chain.initial_bed, consts, N_CHAINS)
     gen = make_generator(1, dev)
@@ -238,20 +307,14 @@ def phase_kernel_vs_plain(chain, card):
     # time both over the recorded steps' operands in turn (fresh windows
     # each launch, as on the main path), plain / kernel / kernel / plain
     scratch = state.fields.clone()
-    turn = iter(range(1 << 62))
-
-    def launcher(fn):
-        def run():
-            f, geom, fvals, _ = ops[next(turn) % len(ops)]
-            fn(consts.stacked, scratch, f, consts.rf.edge_masks, geom, fvals)
-        return run
-
+    recorded = [(consts.stacked, scratch, f, consts.rf.edge_masks, geom,
+                 fvals) for f, geom, fvals, _ in ops]
     t = {"plain": [], "kernel": []}
     for name, fn in (("plain", fused_window_update_reference),
                      ("kernel", fused_window_update),
                      ("kernel", fused_window_update),
                      ("plain", fused_window_update_reference)):
-        t[name].append(_time_per_launch(launcher(fn), n=len(ops)))
+        t[name].append(_time_ops(fn, recorded))
     ms = float(np.mean(t["kernel"]))
     plain_ms = float(np.mean(t["plain"]))
     gbs = float(np.mean([op[3] for op in ops])) / (ms * 1e-3) / 1e9
@@ -273,7 +336,7 @@ def phase_irfft2(chain):
                                              spectral_field_from_noise)
     from mcmc_tpu_torch.utils.rng import make_generator
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     static, _ = chain.build(dev)
     rf = static.rf
     shape = (rf.B, rf.B)
@@ -316,7 +379,7 @@ def phase_main_path(chain, card):
     from mcmc_tpu_torch.ops.window_kernel import fused_window_update
 
     torch.cuda.reset_peak_memory_stats()
-    sampler = MultiChainSampler(chain, N_CHAINS, device="cuda")
+    sampler = MultiChainSampler(chain, N_CHAINS, device=DEVICE)
     states = sampler.init(seeds=0)
     bed0 = states.bed[0].clone()
     n_iter = SEGMENTS * SEGMENT + 1
@@ -360,7 +423,286 @@ def phase_main_path(chain, card):
     return launches
 
 
-def busy_share(sampler, states, card, step_us, n_steps=50):
+def _ulps(a, b):
+    """Per element, how many float32 steps apart two finite float32 CPU
+    tensors are."""
+    import torch
+
+    def line(t):  # sign-magnitude bit patterns onto a monotone integer line
+        i = t.contiguous().view(torch.int32).numpy().astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.abs(line(a) - line(b))
+
+
+def _cg_vs_float64(static, prep, card):
+    """The CG kernel on the first ``CG_F64_CHAINS`` chains' packed systems
+    against a float64 solve of each masked subsystem: run to convergence
+    (``CG_CONVERGED_ITERS``) it must agree within ``CG_F64_TOL``; the
+    production iteration count's distance is printed beside it."""
+    import torch
+
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.covariance import eval_mixture_static
+
+    n = CG_F64_CHAINS
+    args = [t[:n].contiguous() for t in (prep.iaf, prep.jaf, prep.m_sel,
+                                         prep.rhs_p)]
+    w_conv = mix_masked_cg(*args, prep.eps, static.mix, CG_CONVERGED_ITERS)
+    w_prod = mix_masked_cg(*args, prep.eps, static.mix, static.cg_iters)
+    iaf, jaf = args[0], args[1]
+    q = static.mix[4]
+    dif = iaf[:, :, None] - iaf[:, None, :]
+    djf = jaf[:, :, None] - jaf[:, None, :]
+    S = eval_mixture_static(static.mix, q[0] * djf * djf + q[1] * djf * dif
+                            + q[2] * dif * dif).double()
+    worst_conv = worst_prod = 0.0
+    for i in range(n):
+        sel = prep.sel[i]
+        A = S[i][sel][:, sel] + prep.eps * torch.eye(
+            int(sel.sum()), dtype=torch.float64, device=S.device)
+        w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
+        scale = CG_F64_TOL + CG_F64_TOL * w64.abs()
+        worst_conv = max(worst_conv, float(
+            ((w_conv[i][sel].double() - w64).abs() / scale).max()))
+        worst_prod = max(worst_prod, float(
+            ((w_prod[i][sel].double() - w64).abs() / w64.abs().max()).max()))
+    print(f"[sgs-parity] CG kernel vs a float64 solve on {n} chains' "
+          f"systems: run {CG_CONVERGED_ITERS} iterations, worst |err| / "
+          f"(atol + rtol |w|) = {worst_conv:.3f} (bound 1 at {CG_F64_TOL:g})"
+          f" | at the production {static.cg_iters} iterations, worst |err| "
+          f"/ max |w| = {worst_prod:.3e} ({card})", flush=True)
+    if not worst_conv <= 1.0:
+        raise RuntimeError("the CG kernel does not solve the packed system")
+
+
+def phase_sgs_kernels_vs_plain(chain, card):
+    """The four SGS kernels against their plain versions through the
+    step's stages, at the headline, the state advancing on the kernels'
+    results; a plain step from the same state and draws counts the MH
+    decisions that flip."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
+                                              mix_masked_cg_reference)
+    from mcmc_tpu_torch.ops.lut_kernel import (lut_interp,
+                                               lut_interp_reference)
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (
+        window_extract, window_extract_reference, window_writeback,
+        window_writeback_reference)
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device(DEVICE)
+    static, consts = chain.build(dev)
+    if not (static.mix and static.use_transform):
+        raise RuntimeError("the SGS headline must take the mixture CG and "
+                           "the normal-score transform")
+    print(f"[sgs-parity] SB {static.SB}, M {static.M}, K {static.K}, NE "
+          f"{static.NE}, NA {static.NA}, Mg {static.Mg}, Me {static.Me}, "
+          f"cg_iters {static.cg_iters}, n_region {static.n_region}, "
+          f"inverse table {tuple(consts.nst.inv_table.shape)}", flush=True)
+    N, SB, nst = SGS_CHAINS, static.SB, consts.nst
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, N)
+    plain_step = sgs.make_sgs_kernel(static, "eager")
+    gen = make_generator(11, dev)
+    err = dict(extract=0.0, writeback=0.0, cg=0.0, lut=0.0)
+    cg_viol = n_flip = n_lut_diff = 0
+    lut_ulp = 0
+    ops = dict(extract=[], writeback=[], cg=[], lut=[])
+    for it in range(SGS_PARITY_STEPS):
+        d = sgs.draw(gen, static, consts, N)
+        draws = (d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
+        shadow = sgs.SGSState(fields=state.fields.clone(),
+                              loss_mc=state.loss_mc.clone(),
+                              loss_comp=state.loss_comp.clone(),
+                              accepted=state.accepted.clone())
+        _, tr_plain = plain_step(consts, shadow, *draws)
+        del shadow
+
+        geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+        sx, sy = geo.sx32, geo.sy32
+        win = window_extract(consts.stacked, state.fields, sx, sy, SB)
+        win_p = window_extract_reference(consts.stacked, state.fields, sx,
+                                         sy, SB)
+        err["extract"] = max(err["extract"],
+                             float((win - win_p).abs().max()))
+        if not torch.equal(win, win_p):
+            raise RuntimeError("window extract kernel is not bitwise")
+        prep = sgs.prepare(static, consts, win, geo, d.noise, d.drop_u)
+        cg_args = (prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p, prep.eps,
+                   static.mix, static.cg_iters)
+        w = mix_masked_cg(*cg_args)
+        w_p = mix_masked_cg_reference(*cg_args)
+        diff = (w - w_p).abs()
+        err["cg"] = max(err["cg"], float(diff.max()))
+        cg_viol += int((diff > CG_ATOL + CG_RTOL * w_p.abs()).sum())
+        if it == 0:
+            _cg_vs_float64(static, prep, card)
+        z_new, z_cache = sgs.draw_z(static, consts, prep, w, d.noise)
+        args = (z_new, nst.inv_lo, nst.inv_scale, nst.inv_table)
+        inv = lut_interp(*args)
+        inv_p = lut_interp_reference(*args)
+        if not torch.equal(torch.isnan(inv), torch.isnan(inv_p)):
+            raise RuntimeError("LUT kernel disagrees on NaN")
+        ok = ~torch.isnan(inv_p)
+        err["lut"] = max(err["lut"], float((inv - inv_p)[ok].abs().max()))
+        n_lut_diff += int((inv != inv_p)[ok].sum())
+        lut_ulp = max(lut_ulp, int(_ulps(inv[ok].cpu(),
+                                         inv_p[ok].cpu()).max()))
+        new_w, sc = sgs.commit_core(consts, state, prep, z_new, z_cache,
+                                    inv, d.u)
+        fields_p = state.fields.clone()
+        window_writeback(state.fields, new_w, sx, sy, sc.write)
+        window_writeback_reference(fields_p, new_w, sx, sy, sc.write)
+        err["writeback"] = max(err["writeback"], float(
+            (state.fields - fields_p).abs().max()))
+        if not torch.equal(state.fields, fields_p):
+            raise RuntimeError("window writeback kernel is not bitwise")
+        del fields_p
+        state, tr = sgs.assemble(consts, state, sc, d.cx, d.cy, d.bsx,
+                                 d.bsy)
+        n_flip += int((tr["step"] != tr_plain["step"]).sum())
+        ops["extract"].append((consts.stacked, state.fields, sx, sy, SB))
+        ops["writeback"].append((new_w, sx, sy, sc.write))
+        ops["cg"].append(cg_args)
+        ops["lut"].append(args)
+    flip_rate = n_flip / (SGS_PARITY_STEPS * N)
+    n_lut = SGS_PARITY_STEPS * N * SB * SB
+    print(f"[sgs-parity] {SGS_PARITY_STEPS} steps x {N} chains: extract and "
+          f"writeback bitwise | CG max abs err {err['cg']:.3e}, {cg_viol} "
+          f"values beyond rtol/atol {CG_RTOL:g} | LUT {n_lut_diff} of "
+          f"{n_lut} values differ, at most {lut_ulp} ulp (bound "
+          f"{LUT_ULP_MAX}) | MH flips against a plain step {n_flip}/"
+          f"{SGS_PARITY_STEPS * N} = {flip_rate:.3e} (bound "
+          f"{FLIP_RATE_MAX:g})", flush=True)
+    if cg_viol or lut_ulp > LUT_ULP_MAX or flip_rate > FLIP_RATE_MAX:
+        raise RuntimeError("an SGS kernel disagrees with its plain version")
+
+    # times per launch over the recorded operands, plain / kernel /
+    # kernel / plain; the writebacks go to a scratch copy of the state
+    scratch = state.fields.clone()
+    pairs = {
+        "extract": (window_extract_reference, window_extract, ops["extract"]),
+        "writeback": (lambda *a: window_writeback_reference(scratch, *a),
+                      lambda *a: window_writeback(scratch, *a),
+                      ops["writeback"]),
+        "cg": (mix_masked_cg_reference, mix_masked_cg, ops["cg"]),
+        "lut": (lut_interp_reference, lut_interp, ops["lut"]),
+    }
+    out = {}
+    for name, (plain, kernel, recorded) in pairs.items():
+        t = {"plain": [], "kernel": []}
+        for which, fn in (("plain", plain), ("kernel", kernel),
+                          ("kernel", kernel), ("plain", plain)):
+            t[which].append(_time_ops(fn, recorded))
+        out[name] = dict(max_abs_err=err[name], ms=float(np.mean(t["kernel"])),
+                         plain_ms=float(np.mean(t["plain"])))
+        print(f"[sgs-parity] {name}: kernel {out[name]['ms']:.4f} ms, plain "
+              f"{out[name]['plain_ms']:.4f} ms per launch at {N} chains x "
+              f"{GRID}^2, SB={SB} ({card}; CUDA events, {len(recorded)} "
+              f"launches x 2 each)", flush=True)
+    return out
+
+
+def _sgs_reach(region, static):
+    """Cells some block can touch: the region's centre cells dilated by
+    the largest half block."""
+    from scipy.ndimage import maximum_filter
+
+    size = (2 * (static.BMX // 2) + 1, 2 * (static.BMY // 2) + 1)
+    return maximum_filter(np.asarray(region) > 0, size=size)
+
+
+def phase_sgs_main_path(chain, p, card):
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.lut_kernel import lut_interp
+    from mcmc_tpu_torch.ops.physics import (masked_gaussian_loss,
+                                            mass_conservation_residual)
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+                                                      window_writeback)
+
+    kernels = (window_extract, mix_masked_cg, lut_interp, window_writeback)
+    torch.cuda.reset_peak_memory_stats()
+    sampler = MultiChainSampler(chain, SGS_CHAINS, device=DEVICE)
+    static, consts = sampler.static, sampler.consts
+    if not (static.mix and static.use_transform):
+        raise RuntimeError("the SGS main path must take the mixture CG and "
+                           "the normal-score transform")
+    states = sampler.init(seeds=0)
+    bed0 = states.bed.clone()
+    n_iter = SGS_SEGMENTS * SGS_SEGMENT + 1
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, traces = sampler.run(states, n_iter, segment_size=SGS_SEGMENT,
+                                 progress=True)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = n_iter - 1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    loss = traces["loss"]
+    acc = float(np.mean(traces["step"][:, 1:]))
+    outside = torch.as_tensor(~_sgs_reach(p["region"], static),
+                              device=states.bed.device)
+    moved = int((states.bed[:, outside] != bed0[:, outside]).sum())
+    del bed0
+    # the patched residual against a float64 full-grid recompute
+    c64 = consts.stacked.double()
+    res_err = loss_err = 0.0
+    res_viol = 0
+    for i in range(0, SGS_CHAINS, 64):
+        bed = states.bed[i:i + 64].double() + c64[5]
+        full = mass_conservation_residual(bed, c64[0], c64[1], c64[2],
+                                          c64[3], c64[4], consts.resolution)
+        got = states.mc_res[i:i + 64].double()
+        res_err = max(res_err, float((got - full).abs().max()))
+        res_viol += int(((got - full).abs()
+                         > RESID_ATOL + RESID_RTOL * full.abs()).sum())
+        rec = masked_gaussian_loss(got, c64[7] > 0, consts.sigma_mc)
+        loss_err = max(loss_err, float(
+            ((states.loss_mc[i:i + 64].double() - rec).abs() / rec).max()))
+    diag = sampler.diagnostics(traces, elapsed)
+    print(f"[sgs-main] {steps} steps x {SGS_CHAINS} chains in "
+          f"{elapsed:.3f} s: {diag['chain_iters_per_sec']:,.0f} chain-it/s | "
+          f"ESS(loss) {diag['ess_loss']:.1f} -> {diag['ess_per_sec']:.2f} "
+          f"ESS/s | acc {acc:.3f} | loss mean {loss[:, 0].mean():.6e} -> "
+          f"{loss[:, -1].mean():.6e} | peak memory {peak_gb:.2f} GB | "
+          f"launches {launches} ({card})", flush=True)
+    print(f"[sgs-main] patched residual vs a float64 full-grid recompute: "
+          f"max abs err {res_err:.3e}, {res_viol} cells beyond rtol "
+          f"{RESID_RTOL:g} / atol {RESID_ATOL:g} | loss_mc vs its recompute "
+          f"max rel err {loss_err:.3e} | bed cells beyond every block's "
+          f"reach that moved: {moved}", flush=True)
+    for name, n in launches.items():
+        if n != steps:
+            raise RuntimeError(f"{name} ran {n} times in {steps} steps")
+    if not np.isfinite(loss).all():
+        raise RuntimeError("non-finite loss on the SGS main path")
+    if not loss[:, -1].mean() < loss[:, 0].mean():
+        raise RuntimeError("the SGS loss did not decrease")
+    if not 0.02 < acc < 0.98:
+        raise RuntimeError(f"SGS acceptance {acc:.3f} outside (0.02, 0.98)")
+    if moved:
+        raise RuntimeError(f"{moved} bed cells beyond every block's reach "
+                           "changed")
+    if res_viol or not loss_err <= 1e-3:
+        raise RuntimeError("the patched residual or loss departs from a "
+                           "full-grid recompute")
+    if tuple(loss.shape) != (SGS_CHAINS, n_iter):
+        raise RuntimeError(f"loss trace shape {loss.shape}")
+    busy_share(sampler, states, card, elapsed / steps * 1e6, top=10)
+    return launches
+
+
+def busy_share(sampler, states, card, step_us, n_steps=50, top=6):
     """Device-busy share of a short steady window from torch.profiler,
     against the profiled wall time and against ``step_us``, the main
     path's wall time per step without the profiler."""
@@ -386,13 +728,15 @@ def busy_share(sampler, states, card, step_us, n_steps=50):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_us = sum(dev_us(e) for e in events)
+    per_step = sum(e.count for e in events) / n_steps
     if busy_us <= 0:
         print("[profile] device busy share: not measured (the profiler "
               "recorded no device time)", flush=True)
         return
-    top = sorted(events, key=dev_us, reverse=True)[:6]
+    top = sorted(events, key=dev_us, reverse=True)[:top]
     busy = busy_us / n_steps
-    print(f"[profile] {n_steps} steps: device busy {busy:.1f} us/step | "
+    print(f"[profile] {n_steps} steps: {per_step:.0f} device ops/step, "
+          f"device busy {busy:.1f} us/step | "
           f"profiled wall {wall_us / n_steps:.1f} us/step -> idle share "
           f"{1 - busy_us / wall_us:.3f} | unprofiled wall {step_us:.1f} "
           f"us/step -> idle share {1 - busy / step_us:.3f} ({card})",
@@ -412,12 +756,30 @@ def main():
     parity = phase_kernel_vs_plain(chain, card)
     phase_irfft2(chain)
     launches = phase_main_path(chain, card)
+    del chain
+    sgs_chain = make_sgs_chain(p)
+    sgs_parity = phase_sgs_kernels_vs_plain(sgs_chain, card)
+    sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
+    rows = [dict(name="fused_window_update", source="window_kernel.cu",
+                 replaces="mcmc_tpu/ops/window_kernel.py:60",
+                 launches=launches, **parity)]
+    for kernel, key, src, replaces in (
+            ("window_extract", "extract", "sgs_window_kernel.cu",
+             "mcmc_tpu/ops/sgs_window_kernel.py:67"),
+            ("window_writeback", "writeback", "sgs_window_kernel.cu",
+             "mcmc_tpu/ops/sgs_window_kernel.py:151"),
+            ("mix_masked_cg", "cg", "cg_kernel.cu",
+             "mcmc_tpu/ops/cg_kernel.py:232"),
+            ("lut_interp", "lut", "lut_kernel.cu",
+             "mcmc_tpu/ops/lut_kernel.py:97")):
+        rows.append(dict(name=kernel, source=src, replaces=replaces,
+                         launches=sgs_launches[kernel], **sgs_parity[key]))
     print(json.dumps({"kernels": [{
-        "name": "fused_window_update", "route": "cuda",
-        "source": "mcmc_tpu_torch/ops/csrc/window_kernel.cu",
-        "replaces": "mcmc_tpu/ops/window_kernel.py:60",
-        "launches": launches, "max_abs_err": parity["max_abs_err"],
-        "ms": parity["ms"], "plain_ms": parity["plain_ms"]}]}), flush=True)
+        "name": r["name"], "route": "cuda",
+        "source": "mcmc_tpu_torch/ops/csrc/" + r["source"],
+        "replaces": r["replaces"], "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"]} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,15 @@
 """mcmc_tpu_torch: the PyTorch / CUDA port of mcmc_tpu.
 
 Geostatistical MCMC for subglacial topography on an NVIDIA GPU: the
-large-scale CRF (random-field block proposal) chain farm, with the fused
-window update as a hand-written CUDA kernel for Hopper
-(``ops/csrc/window_kernel.cu``).  The JAX package ``mcmc_tpu`` is the
-reference that every part of this package is tested against; this package
-imports neither it nor JAX.
+large-scale CRF (random-field block proposal) chain farm and the
+small-scale SGS (block re-simulation) chain farm, with their Pallas TPU
+kernels as hand-written CUDA kernels for Hopper (``ops/csrc/*.cu``: the
+CRF window update; the SGS window extract and writeback, mixture-system
+CG and inverse LUT).  The JAX package ``mcmc_tpu`` is the reference that
+every part of this package is tested against; this package imports
+neither it nor JAX.
 
-Main path::
+Main path (``ChainSGS`` the same way, with its own setters)::
 
     chain = ChainCRF(...); chain.set_update_region(...); ...
     sampler = MultiChainSampler(chain, n_chains, device="cuda")
@@ -17,9 +19,12 @@ Main path::
 """
 
 from .models.chain_crf import ChainCRF
+from .models.chain_sgs import ChainSGS
+from .ops.transforms import NormalScoreTransform
 from .parallel.sampler import MultiChainSampler
 from .utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
-                           WeightConfig)
+                           SGSParams, VariogramConfig, WeightConfig)
 
-__all__ = ["ChainCRF", "MultiChainSampler", "BlockMenuConfig", "LossConfig",
-           "RandFieldConfig", "WeightConfig"]
+__all__ = ["ChainCRF", "ChainSGS", "MultiChainSampler",
+           "NormalScoreTransform", "BlockMenuConfig", "LossConfig",
+           "RandFieldConfig", "SGSParams", "VariogramConfig", "WeightConfig"]

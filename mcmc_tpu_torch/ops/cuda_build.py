@@ -20,6 +20,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -88,3 +89,11 @@ def load_library(name: str) -> KernelLibrary:
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=ctypes.CDLL(str(out)), path=out,
                          build_seconds=seconds, ptxas=_ptxas_lines(log))
+
+
+def load_libraries(names) -> dict:
+    """Build and load several kernel libraries, one nvcc per source, all
+    started together.  Returns {name: KernelLibrary}."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

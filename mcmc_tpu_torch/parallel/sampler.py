@@ -8,10 +8,12 @@ every trace stays on the device in preallocated ``(n_steps, N, ...)``
 tensors and nothing waits for the host, and each segment's traces are
 copied to the host once, at its end.
 
-Not carried over from the JAX package: the device mesh, chunked launches
-(``scan_chunked``) and grid auto-padding, which were TPU workarounds; the
-SGS chain family, per-chain seed lists and multi-GPU sharding wait for
-later slices (ROADMAP Queue 1).
+Both chain families run here: a ``ChainCRF`` steps through
+``models/chain_crf.make_step``, a ``ChainSGS`` through
+``models/chain_sgs.make_sgs_step``.  Not carried over from the JAX package:
+the device mesh, chunked launches (``scan_chunked``) and grid auto-padding,
+which were TPU workarounds; per-chain seed lists and multi-GPU sharding
+wait for later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -23,15 +25,18 @@ import numpy as np
 import torch
 
 from ..models.chain_crf import ChainState, IMPLS, init_state, make_step
+from ..models.chain_sgs import (ChainSGS, SGSState, check_solver,
+                                make_sgs_step, sgs_init_state)
 from ..utils.rng import make_generator
 
 
 class MultiChainSampler:
-    """Farm of ``n_chains`` CRF chains built from one prototype chain.
+    """Farm of ``n_chains`` chains built from one prototype ``ChainCRF`` or
+    ``ChainSGS``.
 
-    ``impl``: "auto" runs the CUDA window kernel for CUDA tensors and the
-    plain version for CPU ones; "eager" always runs the plain version;
-    "fused" demands the kernel and raises on a CPU device.
+    ``impl``: "auto" runs the CUDA kernels for CUDA tensors and their
+    plain versions for CPU ones; "eager" always runs the plain versions;
+    "fused" demands the kernels and raises on a CPU device.
     """
 
     def __init__(self, chain, n_chains: int, device=None,
@@ -42,32 +47,51 @@ class MultiChainSampler:
             device if device is not None
             else ("cuda" if torch.cuda.is_available() else "cpu"))
         if impl == "fused" and self.device.type != "cuda":
-            raise ValueError("impl='fused' runs the CUDA window kernel and "
-                             f"needs a CUDA device, not {self.device}")
+            raise ValueError("impl='fused' runs the CUDA kernels and needs a "
+                             f"CUDA device, not {self.device}")
         self.chain = chain
         self.n_chains = int(n_chains)
         self.impl = impl
+        self.is_sgs = isinstance(chain, ChainSGS)
         self.static, self.consts = chain.build(self.device)
-        self._step = make_step(self.static, impl)
+        if self.is_sgs:
+            check_solver(self.static, impl, self.device)
+            self._step = make_sgs_step(self.static, impl)
+        else:
+            self._step = make_step(self.static, impl)
         self.generator = None
 
     # -- state ---------------------------------------------------------------
 
-    def init(self, initial_beds=None, seeds=None) -> ChainState:
+    def init(self, initial_beds=None, seeds=None) -> ChainState | SGSState:
         """Batched initial states, and the sampler's generator.
 
         initial_beds: (n_chains, H, W), one (H, W) bed shared by every
-        chain, or None for the prototype chain's initial bed.
+        chain, or None for the prototype chain's initial bed.  An SGS
+        chain's beds are full-space: they are detrended and clamp-
+        roundtripped like the builder's (``ChainSGS.preprocess_beds``),
+        and their z-planes computed on the host.
         seeds: int master seed or None (fresh entropy); a None falls back
         to the chain's ``set_random_generator`` seed when it has one.
         """
         if seeds is None:
             seeds = self.chain.seed
         self.generator = make_generator(seeds, self.device)
-        beds = (self.chain.initial_bed if initial_beds is None
-                else np.asarray(initial_beds, np.float32))
+        if self.is_sgs:
+            if initial_beds is None:
+                beds = self.chain._initial_detrended
+                z0 = self.chain._initial_z
+            else:
+                beds = self.chain.preprocess_beds(initial_beds)
+                z0 = self.chain.host_transform(beds)
+        else:
+            beds = (self.chain.initial_bed if initial_beds is None
+                    else np.asarray(initial_beds, np.float32))
         if beds.ndim == 3 and beds.shape[0] != self.n_chains:
             raise ValueError("initial_beds leading dim must equal n_chains")
+        if self.is_sgs:
+            return sgs_init_state(beds, self.consts, z0,
+                                  self.static.use_transform, self.n_chains)
         return init_state(beds, self.consts, self.n_chains)
 
     # -- execution -----------------------------------------------------------
@@ -85,7 +109,7 @@ class MultiChainSampler:
                                    **kw),
         }
 
-    def run_segment(self, states: ChainState, n_steps: int):
+    def run_segment(self, states: ChainState | SGSState, n_steps: int):
         """``n_steps`` MH steps; returns (states, traces) with time-major
         device traces of shape (n_steps, n_chains, ...)."""
         if self.generator is None:
@@ -97,22 +121,27 @@ class MultiChainSampler:
                 buf[t] = tr[k]
         return states, bufs
 
-    def _init_row(self, states: ChainState):
+    def _init_row(self, states: ChainState | SGSState):
         N = self.n_chains
         sij = self.consts.sample_ij
         samples = (states.bed[:, sij[:, 0], sij[:, 1]] if sij.shape[0]
                    else states.bed.new_zeros((N, 0)))
+        if self.is_sgs:  # the probes report the trend-restored bed
+            samples = samples + self.consts.trend[sij[:, 0], sij[:, 1]]
+        loss_data = getattr(states, "loss_data",
+                            torch.zeros_like(states.loss_mc))
         row = {
             "loss_mc": states.loss_mc,
-            "loss_data": states.loss_data,
-            "loss": states.loss_mc + states.loss_data,
+            "loss_data": loss_data,
+            "loss": states.loss_mc + loss_data,
             "step": torch.zeros(N, dtype=torch.bool, device=self.device),
             "block": torch.full((N, 4), float("nan"), device=self.device),
             "samples": samples,
         }
         return {k: v.cpu().numpy()[None] for k, v in row.items()}
 
-    def run(self, states: ChainState, n_iter: int, segment_size: int = 2000,
+    def run(self, states: ChainState | SGSState, n_iter: int,
+            segment_size: int = 2000,
             progress: bool = True,
             segment_callback: Optional[Callable] = None):
         """Run ``n_iter`` iterations in segments of ``segment_size`` steps.

@@ -1,4 +1,6 @@
-"""The CUDA window kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+CRF window kernel, and the SGS window extract and writeback, mixture CG
+and inverse LUT.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -11,13 +13,22 @@ import pytest
 import torch
 
 from mcmc_tpu_torch import MultiChainSampler
+from mcmc_tpu_torch.models import chain_sgs as sgs
 from mcmc_tpu_torch.models.chain_crf import (draw, init_state, propose,
                                              window_operands)
+from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
+                                          mix_masked_cg_reference)
+from mcmc_tpu_torch.ops.covariance import eval_mixture_static
+from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
+from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+                                                  window_extract_reference,
+                                                  window_writeback,
+                                                  window_writeback_reference)
 from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
                                               fused_window_update_reference)
 from mcmc_tpu_torch.utils.rng import make_generator
 from tests.torch_helpers import (assert_delta_close, block_losses,
-                                 small_chain, small_problem)
+                                 small_chain, small_problem, small_sgs_chain)
 
 N = 64
 
@@ -100,3 +111,154 @@ def test_fused_impl_refuses_cpu():
     chain = small_chain(small_problem(H=48, W=48))
     with pytest.raises(ValueError, match="CUDA"):
         MultiChainSampler(chain, 2, device="cpu", impl="fused")
+
+
+# --- the SGS kernels ------------------------------------------------------------
+
+def _sgs_step_operands(device, n=N, seed=4):
+    """A small SGS chain on the card and one step's operands up to the
+    packed solve."""
+    chain = small_sgs_chain(small_problem())
+    static, consts = chain.build(device)
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, n)
+    d = sgs.draw(make_generator(seed, device), static, consts, n)
+    geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+    windows = window_extract_reference(consts.stacked, state.fields,
+                                       geo.sx32, geo.sy32, static.SB)
+    prep = sgs.prepare(static, consts, windows, geo, d.noise)
+    return static, consts, state, d, geo, prep
+
+
+@pytest.mark.cuda
+def test_window_extract_and_writeback_kernels_bitwise(cuda_device):
+    H, W, SB, NS = 64, 200, 20, 4
+    gen = make_generator(1, cuda_device)
+    cons = torch.randn((10, H, W), generator=gen, device=cuda_device)
+    fields = torch.randn((N, NS, H, W), generator=gen, device=cuda_device)
+    sx = torch.randint(0, H - SB + 1, (N,), generator=gen,
+                       device=cuda_device, dtype=torch.int32)
+    sy = torch.randint(0, W - SB + 1, (N,), generator=gen,
+                       device=cuda_device, dtype=torch.int32)
+    sx[:4] = torch.tensor([0, H - SB, 0, H - SB], dtype=torch.int32)
+    sy[:4] = torch.tensor([0, W - SB, W - SB, 0], dtype=torch.int32)
+    before = window_extract.launches
+    got = window_extract(cons, fields, sx, sy, SB)
+    assert window_extract.launches == before + 1
+    assert torch.equal(got, window_extract_reference(cons, fields, sx, sy,
+                                                     SB))
+    new_w = torch.randn((N, NS, SB, SB), generator=gen, device=cuda_device)
+    write = torch.rand((N,), generator=gen, device=cuda_device) < 0.5
+    write[:2] = torch.tensor([True, False])
+    k, p = fields.clone(), fields.clone()
+    before = window_writeback.launches
+    window_writeback(k, new_w, sx, sy, write)
+    window_writeback_reference(p, new_w, sx, sy, write)
+    torch.cuda.synchronize()
+    assert window_writeback.launches == before + 1
+    assert torch.equal(k, p)
+    assert torch.equal(k[~write], fields[~write])
+
+
+@pytest.mark.cuda
+def test_mix_cg_kernel_matches_plain_version(cuda_device):
+    """Kernel against the plain version (same sums in the same order; only
+    expf may round apart) at rtol/atol 2e-4, and against a float64 solve
+    of the masked subsystem at 2e-3 (well-conditioned short-range
+    systems)."""
+    static, consts, _, _, _, prep = _sgs_step_operands(cuda_device)
+    args = (prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p, prep.eps, static.mix,
+            static.cg_iters)
+    before = mix_masked_cg.launches
+    got = mix_masked_cg(*args)
+    assert mix_masked_cg.launches == before + 1
+    want = mix_masked_cg_reference(*args)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert (got[prep.m_sel == 0] == 0).all()
+    q = static.mix[4]
+    dif = prep.iaf[:, :, None] - prep.iaf[:, None, :]
+    djf = prep.jaf[:, :, None] - prep.jaf[:, None, :]
+    S = eval_mixture_static(
+        static.mix, q[0] * djf * djf + q[1] * djf * dif + q[2] * dif * dif
+    ).double()
+    for i in range(0, N, 8):
+        sel = prep.sel[i]
+        A = S[i][sel][:, sel] + prep.eps * torch.eye(
+            int(sel.sum()), dtype=torch.float64, device=cuda_device)
+        w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
+        torch.testing.assert_close(got[i][sel].double(), w64, rtol=2e-3,
+                                   atol=2e-3)
+    with pytest.raises(ValueError, match="K <= 64"):
+        z = torch.zeros((2, 65), device=cuda_device)
+        mix_masked_cg(z, z, z, z, 1e-3, static.mix, 4)
+
+
+@pytest.mark.cuda
+def test_mix_cg_kernel_non_dyadic(cuda_device):
+    """The per-term (non-dyadic) mixture form with both families, so the
+    exponential family's sqrtf too (tests/test_kriging.py:222's mixture),
+    per-chain eps and masked slots, against the plain version."""
+    mix = ((0.5, 0.3), (0.01, 0.002), (0.4,), (0.05,), (1.0, 0.1, 1.2))
+    rng = np.random.default_rng(7)
+    n, K, SB = 16, 48, 40
+    idx = np.stack([rng.permutation(SB * SB)[:K] for _ in range(n)])
+    mask = (rng.random((n, K)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=cuda_device)
+
+    args = (dev(idx // SB), dev(idx % SB), dev(mask),
+            dev(rng.normal(size=(n, K))), dev(np.linspace(1e-3, 3e-3, n)),
+            mix, 96)
+    got = mix_masked_cg(*args)
+    torch.testing.assert_close(got, mix_masked_cg_reference(*args),
+                               rtol=2e-4, atol=2e-4)
+    assert (got[args[2] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_lut_kernel_bitwise(cuda_device):
+    """NaN, out-of-range values and the last rows included."""
+    static, consts, _, _, _, prep = _sgs_step_operands(cuda_device)
+    nst = consts.nst
+    n = nst.inv_table.shape[0]
+    gen = make_generator(2, cuda_device)
+    x = torch.cat([
+        torch.rand((N, static.SB, static.SB), generator=gen,
+                   device=cuda_device).flatten() * 16.0 - 8.0,
+        nst.inv_lo + (n - 1 - torch.tensor([0.5, 1e-3, 0.0, -3.0],
+                                           device=cuda_device))
+        / nst.inv_scale,
+        torch.tensor([float("nan"), -1e9, 1e9, float("inf"), 0.0],
+                     device=cuda_device)])
+    before = lut_interp.launches
+    got = lut_interp(x, nst.inv_lo, nst.inv_scale, nst.inv_table)
+    assert lut_interp.launches == before + 1
+    want = lut_interp_reference(x, nst.inv_lo, nst.inv_scale, nst.inv_table)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+@pytest.mark.cuda
+def test_sgs_sampler_launches_each_kernel_once_per_step(cuda_device):
+    """impl='fused' runs all four SGS kernels once per step; the eager
+    sampler, fed the same seed, agrees on the MH decisions until a
+    borderline one flips."""
+    chain = small_sgs_chain(small_problem())
+    fused = MultiChainSampler(chain, N, device=cuda_device, impl="fused")
+    ops = (window_extract, window_writeback, mix_masked_cg, lut_interp)
+    for op in ops:
+        op.launches = 0
+    s_f, tr_f = fused.run(fused.init(seeds=3), 41, segment_size=20,
+                          progress=False)
+    assert [op.launches for op in ops] == [40] * 4
+    eager = MultiChainSampler(chain, N, device=cuda_device, impl="eager")
+    s_e, tr_e = eager.run(eager.init(seeds=3), 41, segment_size=20,
+                          progress=False)
+    assert [op.launches for op in ops] == [40] * 4
+    assert np.isfinite(tr_f["loss"]).all()
+    assert tr_f["loss"][:, -1].mean() < tr_f["loss"][:, 0].mean()
+    agree = (tr_f["step"] == tr_e["step"]).mean()
+    assert agree > 0.99, agree

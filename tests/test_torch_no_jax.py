@@ -26,6 +26,13 @@ IMPORT_ALL = """
 import importlib, pkgutil, sys
 import mcmc_tpu_torch
 import mcmc_tpu_torch.models.chain_crf
+import mcmc_tpu_torch.models.chain_sgs
+import mcmc_tpu_torch.ops.cg_kernel
+import mcmc_tpu_torch.ops.covariance
+import mcmc_tpu_torch.ops.kriging
+import mcmc_tpu_torch.ops.lut_kernel
+import mcmc_tpu_torch.ops.sgs_window_kernel
+import mcmc_tpu_torch.ops.transforms
 import mcmc_tpu_torch.parallel.sampler
 for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "mcmc_tpu_torch."):
     importlib.import_module(m.name)
@@ -45,7 +52,7 @@ def test_importing_the_port_loads_no_jax():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split("\n")[:2]
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 22
     assert bad == "", f"imported: {bad}"
 
 

@@ -4,7 +4,8 @@
 
 import numpy as np
 
-from mcmc_tpu_torch import (BlockMenuConfig, ChainCRF, RandFieldConfig,
+from mcmc_tpu_torch import (BlockMenuConfig, ChainCRF, ChainSGS,
+                            NormalScoreTransform, RandFieldConfig,
                             WeightConfig)
 
 
@@ -83,3 +84,27 @@ def assert_delta_close(actual, desired, block_loss, msg=""):
     err = np.abs(np.asarray(actual, np.float64) - desired)
     bound = 1e-5 * (block_loss + np.abs(desired)) + 1e-6
     assert np.all(err <= bound), (msg, actual, desired, err, bound)
+
+
+def small_sgs_chain(p, vario=("Matern", 2.5e3, 1.0, 0.0, 1.3), blocks=(5, 12),
+                    transform=True):
+    """An SGS chain at the production settings (detrend, normal-score
+    transform, 48 neighbours within 30 km), with a short-range matérn
+    (nu=1.3) so the packed systems are well conditioned at a small size."""
+    from scipy.ndimage import gaussian_filter
+
+    c = ChainSGS(p["xx"], p["yy"], p["initial_bed"], p["surf"], p["velx"],
+                 p["vely"], p["dhdt"], p["smb"], p["cond_bed"],
+                 p["data_mask"], p["grounded"], p["resolution"])
+    c.set_update_region(True, p["region"])
+    c.set_loss_type(sigma_mc=5.0, massConvInRegion=True)
+    trend = gaussian_filter(p["initial_bed"], sigma=10).astype(np.float32)
+    c.set_trend(trend, detrend_map=True)
+    if transform:
+        c.set_normal_transformation(NormalScoreTransform.fit(
+            (p["initial_bed"] - trend).ravel(), 500), do_transform=True)
+    vtype, vrange, sill, nugget, smooth = vario
+    c.set_variogram(vtype, vrange, sill, nugget, vario_smoothness=smooth)
+    c.set_sgs_param(48, 30e3)
+    c.set_block_sizes(blocks[0], blocks[1], blocks[0], blocks[1])
+    return c
