@@ -19,10 +19,10 @@ line or more each:
 4. irfft2 on the card against the CPU on the same half-spectrum noise;
 5. CRF main path: ChainCRF -> MultiChainSampler(chain, 768) ->
    init(seeds=0) -> run(3 segments x 500 iterations) -> diagnostics,
-   checking that every step launched the kernel, the loss is finite and
-   falls, acceptance is in (0.02, 0.98) and the bed outside the update
-   region is untouched; then a short profiled window for the device's
-   busy share;
+   checking that every step launched the window kernel and the Philox
+   noise kernel once each, the loss is finite and falls, acceptance is in
+   (0.02, 0.98) and the bed outside the update region is untouched; then
+   a short profiled window for the device's busy share;
 6. SGS kernels vs plain versions: 10 steps at the SGS headline (512
    chains on the same 512 x 512 grid), the state advancing on the
    kernels' results: window extract and writeback bitwise, the inverse
@@ -35,21 +35,51 @@ line or more each:
    checking that each of the four kernels ran once per step, the loss is
    finite and falls, acceptance is in (0.02, 0.98), the bed beyond every
    block's reach is untouched and the patched residual equals a full-grid
-   recompute; then a profiled window.
+   recompute; then a profiled window;
+8. noise kernel vs plain version: the Philox normals at the CRF
+   headline's shape (768 chains x 160 x 41) within 1e-5 of the plain
+   version, their moments, tail cap and cross-chain correlation, both
+   times per launch and ``torch.randn`` of the same shape;
+9. the CRF step on its kernels (noise, cuFFT, window) against the plain
+   step (plain Philox, plain window op) from the same state and generator
+   state: 20 steps at 768 chains, at most 1e-3 of MH decisions flipping;
+10. the CG on a given Sigma vs its plain version: 10 steps at the
+   spherical SGS headline (``make_sgs_chain`` with a spherical 10 km
+   variogram, which has no mixture fit: K = 48, 48 CG iterations), within
+   rtol / atol 2e-4, run to convergence within 2e-3 of a float64 solve,
+   MH flips against a plain step at most 1e-3; both times per launch;
+11. the entry point at full width: the problem as an ``.npz`` and JSON
+   configs in a temporary directory under the checkout, run through
+   ``mcmc_tpu_torch.cli.main``: (a) the spherical SGS farm, 512 chains,
+   400 iterations, then resumed to 600, bitwise equal in traces and final
+   beds to an uninterrupted 600, the given-Sigma CG once per step, and
+   ``--info`` listing the checkpoint; (b) the CRF farm at 768 chains
+   through ``drivers.large_scale_chain_farm``, 300 iterations.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
 proposals with block menu 50-80 in 5 steps; and the SGS chain at the
 reference's production settings (blocks 5-20, 48 neighbours within
 30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
-10 km).  The second-to-last line is a JSON object describing the kernels;
-the last line is the JSON contract ``{"ok": true, "device": ...}``.
+10 km).  The second-to-last line is a JSON object describing the seven
+kernels: each one's launches on the path that runs it (counts set to 0
+just before the path and read just after), its error against its plain
+version, its time, the plain version's, the least time the card could
+take for the same work (``bound_ms``: the bytes the function must move at
+3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger)
+and, where one PyTorch call computes the same function, that call's
+time.  The last line is the JSON contract ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
+import dataclasses
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -66,13 +96,34 @@ SGS_PARITY_STEPS = 10
 SGS_SEGMENTS = 3
 SGS_SEGMENT = 400
 KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
-                  "lut_kernel")
+                  "lut_kernel", "noise_kernel")
+NOISE_SEEDS = 10         # phase 8's launches per timed loop
+SPH_PARITY_STEPS = 10
+ENTRY_SGS_ITERS = (400, 600)  # phase 11a: run, then resume to
+ENTRY_SEGMENT = 200
+ENTRY_CRF_ITERS = 300
+ROOT = Path(__file__).resolve().parent
+# (wrapper, source under mcmc_tpu_torch/ops/csrc, the Pallas kernel it
+# replaces): every function of the JAX package that reaches pallas_call
+KERNELS = (
+    ("fused_window_update", "window_kernel.cu",
+     "mcmc_tpu/ops/window_kernel.py:60"),
+    ("window_extract", "sgs_window_kernel.cu",
+     "mcmc_tpu/ops/sgs_window_kernel.py:67"),
+    ("window_writeback", "sgs_window_kernel.cu",
+     "mcmc_tpu/ops/sgs_window_kernel.py:151"),
+    ("mix_masked_cg", "cg_kernel.cu", "mcmc_tpu/ops/cg_kernel.py:232"),
+    ("masked_cg", "cg_kernel.cu", "mcmc_tpu/ops/cg_kernel.py:184"),
+    ("lut_interp", "lut_kernel.cu", "mcmc_tpu/ops/lut_kernel.py:97"),
+    ("batched_normal", "noise_kernel.cu", "mcmc_tpu/ops/noise_kernel.py:80"),
+)
 
 # kernel vs plain version bounds
 FLIP_RATE_MAX = 1e-3     # MH decisions that differ (f32 sums in another order)
 DELTA_REL_MAX = 1e-4     # delta error relative to the block loss it sums
 FIELD_RTOL, FIELD_ATOL = 5e-5, 1e-3
 HBM_GBS = 3350           # H100 SXM device-memory bandwidth (data sheet)
+F32_TFLOPS = 67          # H100 SXM float32 peak outside the tensor cores
 IRFFT_REL_MAX = 1e-5     # card vs a float64 transform, relative to field rms
 SLEEP_CYCLES = 50_000_000  # ~25 ms of device spin ahead of a timed loop
 # SGS kernels vs plain versions
@@ -82,6 +133,12 @@ CG_F64_CHAINS = 16       # the sample of chains solved in float64
 CG_CONVERGED_ITERS = 512  # the production 64 stop short of convergence
 LUT_ULP_MAX = 1
 RESID_RTOL, RESID_ATOL = 2e-3, 2e-2  # patched vs full-grid residual
+# noise kernel vs plain version: the same Philox words and transform;
+# logf / sinf / cosf against PyTorch's CUDA log / sin / cos
+NOISE_ATOL = 1e-5
+NOISE_CAP = 5.8872       # sqrt(-2 ln 2^-25) = sqrt(50 ln 2), the tail cap
+NOISE_CORR_MAX = 0.08    # largest cross-chain |corr| over 64 chains
+NOISE_MOMENT_TOL = 0.01  # |mean| and |std - 1| of all the normals
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -225,6 +282,33 @@ def _window_bytes(geom, acc, B, n_const=6):
     return 4.0 * float((reads + writes).sum())
 
 
+def _bound(bytes_moved=0.0, flops=0.0):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves ``bytes_moved`` and does ``flops`` float32
+    operations, at 3.35 TB/s and 67 TFLOP/s."""
+    t_bytes = bytes_moved / (HBM_GBS * 1e9) * 1e3
+    t_ops = flops / (F32_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _cg_work(N, K, n_iters, build_per_entry, bytes_in):
+    """(bytes, flops) of one CG launch: per iteration a K x K matvec
+    (2K^2), two dot products and three axpys (~10K); the system's build
+    costs ``build_per_entry`` operations a matrix entry.  ``bytes_in``
+    per chain, plus w written."""
+    flops = N * (n_iters * (2 * K * K + 10 * K) + build_per_entry * K * K)
+    return N * (bytes_in + 4 * K), flops
+
+
+def _covered_cells(sx, sy, SB, H, W):
+    """Distinct grid cells that the (SB, SB) windows at (sx, sy) cover:
+    the const planes' cells a window extract must read once."""
+    cover = np.zeros((H, W), bool)
+    for a, b in zip(sx.tolist(), sy.tolist()):
+        cover[a:a + SB, b:b + SB] = True
+    return int(cover.sum())
+
+
 def _time_ops(fn, ops):
     """Mean ms per launch of ``fn(*op)`` over the recorded operands in
     turn, from CUDA events, after one warm-up launch.  The card first
@@ -245,6 +329,23 @@ def _time_ops(fn, ops):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / len(ops)
+
+
+def _clone_state(state):
+    """A copy of a chain state whose tensors share nothing with it."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)})
+
+
+def _pair_times(plain, kernel, recorded):
+    """Mean ms per launch of the plain version and the kernel over the
+    recorded operands, timed in turn: plain, kernel, kernel, plain."""
+    t = {"plain": [], "kernel": []}
+    for which, fn in (("plain", plain), ("kernel", kernel),
+                      ("kernel", kernel), ("plain", plain)):
+        t[which].append(_time_ops(fn, recorded))
+    return float(np.mean(t["plain"])), float(np.mean(t["kernel"]))
 
 
 def phase_kernel_vs_plain(chain, card):
@@ -309,22 +410,19 @@ def phase_kernel_vs_plain(chain, card):
     scratch = state.fields.clone()
     recorded = [(consts.stacked, scratch, f, consts.rf.edge_masks, geom,
                  fvals) for f, geom, fvals, _ in ops]
-    t = {"plain": [], "kernel": []}
-    for name, fn in (("plain", fused_window_update_reference),
-                     ("kernel", fused_window_update),
-                     ("kernel", fused_window_update),
-                     ("plain", fused_window_update_reference)):
-        t[name].append(_time_ops(fn, recorded))
-    ms = float(np.mean(t["kernel"]))
-    plain_ms = float(np.mean(t["plain"]))
-    gbs = float(np.mean([op[3] for op in ops])) / (ms * 1e-3) / 1e9
+    plain_ms, ms = _pair_times(fused_window_update_reference,
+                               fused_window_update, recorded)
+    moved = float(np.mean([op[3] for op in ops]))
+    gbs = moved / (ms * 1e-3) / 1e9
+    bound_ms, bound_by = _bound(moved)
     print(f"[parity] time per launch at {N_CHAINS} chains x {GRID}^2, "
           f"B={static.rf.B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"({card}; CUDA events, {len(ops)} launches x 2 each) | kernel "
-          f"{gbs:.0f} GB/s = {gbs / HBM_GBS:.3f} of {HBM_GBS} GB/s",
-          flush=True)
+          f"{gbs:.0f} GB/s = {gbs / HBM_GBS:.3f} of {HBM_GBS} GB/s | bound "
+          f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB)", flush=True)
     return dict(max_abs_err=field_err, ms=ms, plain_ms=plain_ms,
-                flip_rate=flip_rate)
+                flip_rate=flip_rate, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def phase_irfft2(chain):
@@ -376,21 +474,24 @@ def phase_main_path(chain, card):
     import torch
 
     from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.noise_kernel import batched_normal
     from mcmc_tpu_torch.ops.window_kernel import fused_window_update
 
+    kernels = (fused_window_update, batched_normal)
     torch.cuda.reset_peak_memory_stats()
     sampler = MultiChainSampler(chain, N_CHAINS, device=DEVICE)
     states = sampler.init(seeds=0)
     bed0 = states.bed[0].clone()
     n_iter = SEGMENTS * SEGMENT + 1
-    fused_window_update.launches = 0
+    for k in kernels:
+        k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, traces = sampler.run(states, n_iter, segment_size=SEGMENT,
-                                 progress=True)
+                                 progress=False)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = fused_window_update.launches
+    launches = {k.__name__: k.launches for k in kernels}
     steps = n_iter - 1
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -404,10 +505,10 @@ def phase_main_path(chain, card):
           f"{diag['ess_loss']:.1f} -> {diag['ess_per_sec']:.2f} ESS/s | "
           f"acc {acc:.3f} | loss mean {loss[:, 0].mean():.6e} -> "
           f"{loss[:, -1].mean():.6e} | peak memory {peak_gb:.2f} GB | "
-          f"kernel launches {launches} ({card})", flush=True)
-    if launches != steps:
-        raise RuntimeError(f"the window kernel ran {launches} times in "
-                           f"{steps} steps")
+          f"launches {launches} ({card})", flush=True)
+    for name, n in launches.items():
+        if n != steps:
+            raise RuntimeError(f"{name} ran {n} times in {steps} steps")
     if not np.isfinite(loss).all():
         raise RuntimeError("non-finite loss on the main path")
     if not loss[:, -1].mean() < loss[:, 0].mean():
@@ -435,45 +536,57 @@ def _ulps(a, b):
     return np.abs(line(a) - line(b))
 
 
-def _cg_vs_float64(static, prep, card):
-    """The CG kernel on the first ``CG_F64_CHAINS`` chains' packed systems
+def _cg_vs_float64(tag, solve, S64, prep, cg_iters, card):
+    """A CG kernel on the first ``CG_F64_CHAINS`` chains' packed systems
     against a float64 solve of each masked subsystem: run to convergence
     (``CG_CONVERGED_ITERS``) it must agree within ``CG_F64_TOL``; the
-    production iteration count's distance is printed beside it."""
+    production iteration count's distance is printed beside it.
+    ``solve(n_iters)`` runs the kernel on those chains; ``S64`` is their
+    (n, K, K) system matrix in float64, before the mask and the diagonal."""
     import torch
 
-    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
-    from mcmc_tpu_torch.ops.covariance import eval_mixture_static
-
-    n = CG_F64_CHAINS
-    args = [t[:n].contiguous() for t in (prep.iaf, prep.jaf, prep.m_sel,
-                                         prep.rhs_p)]
-    w_conv = mix_masked_cg(*args, prep.eps, static.mix, CG_CONVERGED_ITERS)
-    w_prod = mix_masked_cg(*args, prep.eps, static.mix, static.cg_iters)
-    iaf, jaf = args[0], args[1]
-    q = static.mix[4]
-    dif = iaf[:, :, None] - iaf[:, None, :]
-    djf = jaf[:, :, None] - jaf[:, None, :]
-    S = eval_mixture_static(static.mix, q[0] * djf * djf + q[1] * djf * dif
-                            + q[2] * dif * dif).double()
+    w_conv, w_prod = solve(CG_CONVERGED_ITERS), solve(cg_iters)
     worst_conv = worst_prod = 0.0
-    for i in range(n):
+    for i in range(S64.shape[0]):
         sel = prep.sel[i]
-        A = S[i][sel][:, sel] + prep.eps * torch.eye(
-            int(sel.sum()), dtype=torch.float64, device=S.device)
+        A = S64[i][sel][:, sel] + prep.eps * torch.eye(
+            int(sel.sum()), dtype=torch.float64, device=S64.device)
         w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
         scale = CG_F64_TOL + CG_F64_TOL * w64.abs()
         worst_conv = max(worst_conv, float(
             ((w_conv[i][sel].double() - w64).abs() / scale).max()))
         worst_prod = max(worst_prod, float(
             ((w_prod[i][sel].double() - w64).abs() / w64.abs().max()).max()))
-    print(f"[sgs-parity] CG kernel vs a float64 solve on {n} chains' "
+    print(f"[{tag}] CG kernel vs a float64 solve on {S64.shape[0]} chains' "
           f"systems: run {CG_CONVERGED_ITERS} iterations, worst |err| / "
           f"(atol + rtol |w|) = {worst_conv:.3f} (bound 1 at {CG_F64_TOL:g})"
-          f" | at the production {static.cg_iters} iterations, worst |err| "
-          f"/ max |w| = {worst_prod:.3e} ({card})", flush=True)
+          f" | at the production {cg_iters} iterations, worst |err| / max "
+          f"|w| = {worst_prod:.3e} ({card})", flush=True)
     if not worst_conv <= 1.0:
-        raise RuntimeError("the CG kernel does not solve the packed system")
+        raise RuntimeError(f"[{tag}] the CG kernel does not solve the "
+                           "packed system")
+
+
+def _mix_cg_vs_float64(static, prep, card):
+    """``_cg_vs_float64`` for the mixture CG: the float64 system is the
+    mixture evaluated at the packed neighbours' offsets."""
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.covariance import eval_mixture_static
+
+    n = CG_F64_CHAINS
+    iaf, jaf, m, rhs = [t[:n].contiguous() for t in (
+        prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p)]
+    q = static.mix[4]
+    dif = iaf[:, :, None] - iaf[:, None, :]
+    djf = jaf[:, :, None] - jaf[:, None, :]
+    S = eval_mixture_static(static.mix, q[0] * djf * djf + q[1] * djf * dif
+                            + q[2] * dif * dif)
+
+    def solve(n_iters):
+        return mix_masked_cg(iaf, jaf, m, rhs, prep.eps, static.mix, n_iters)
+
+    _cg_vs_float64("sgs-parity", solve, S.double(), prep, static.cg_iters,
+                   card)
 
 
 def phase_sgs_kernels_vs_plain(chain, card):
@@ -511,15 +624,13 @@ def phase_sgs_kernels_vs_plain(chain, card):
     cg_viol = n_flip = n_lut_diff = 0
     lut_ulp = 0
     ops = dict(extract=[], writeback=[], cg=[], lut=[])
+    work = dict(extract=[], writeback=[], cg=[], lut=[])  # (bytes, flops)
+    K, H, W = static.K, static.H, static.W
+    table_bytes = 4 * nst.inv_table.numel()
     for it in range(SGS_PARITY_STEPS):
         d = sgs.draw(gen, static, consts, N)
         draws = (d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
-        shadow = sgs.SGSState(fields=state.fields.clone(),
-                              loss_mc=state.loss_mc.clone(),
-                              loss_comp=state.loss_comp.clone(),
-                              accepted=state.accepted.clone())
-        _, tr_plain = plain_step(consts, shadow, *draws)
-        del shadow
+        _, tr_plain = plain_step(consts, _clone_state(state), *draws)
 
         geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
         sx, sy = geo.sx32, geo.sy32
@@ -539,7 +650,7 @@ def phase_sgs_kernels_vs_plain(chain, card):
         err["cg"] = max(err["cg"], float(diff.max()))
         cg_viol += int((diff > CG_ATOL + CG_RTOL * w_p.abs()).sum())
         if it == 0:
-            _cg_vs_float64(static, prep, card)
+            _mix_cg_vs_float64(static, prep, card)
         z_new, z_cache = sgs.draw_z(static, consts, prep, w, d.noise)
         args = (z_new, nst.inv_lo, nst.inv_scale, nst.inv_table)
         inv = lut_interp(*args)
@@ -568,6 +679,20 @@ def phase_sgs_kernels_vs_plain(chain, card):
         ops["writeback"].append((new_w, sx, sy, sc.write))
         ops["cg"].append(cg_args)
         ops["lut"].append(args)
+        # bytes each function must move: the state windows and the
+        # distinct const cells read, the (N, 14, SB, SB) windows written;
+        # the written chains' windows read and written back; the LUT's
+        # values in and out and its table
+        covered = _covered_cells(sx.cpu(), sy.cpu(), SB, H, W)
+        work["extract"].append((4.0 * (N * 4 * SB * SB + 10 * covered
+                                       + N * 14 * SB * SB) + 8 * N, 0.0))
+        n_write = int(sc.write.sum())
+        work["writeback"].append((4.0 * 2 * n_write * 4 * SB * SB + 9 * N,
+                                  0.0))
+        work["cg"].append(_cg_work(N, K, static.cg_iters,
+                                   11 + 3 * (static.Mg + static.Me),
+                                   4 * (4 * K + 1)))
+        work["lut"].append((4.0 * 2 * N * SB * SB + table_bytes, 0.0))
     flip_rate = n_flip / (SGS_PARITY_STEPS * N)
     n_lut = SGS_PARITY_STEPS * N * SB * SB
     print(f"[sgs-parity] {SGS_PARITY_STEPS} steps x {N} chains: extract and "
@@ -593,16 +718,16 @@ def phase_sgs_kernels_vs_plain(chain, card):
     }
     out = {}
     for name, (plain, kernel, recorded) in pairs.items():
-        t = {"plain": [], "kernel": []}
-        for which, fn in (("plain", plain), ("kernel", kernel),
-                          ("kernel", kernel), ("plain", plain)):
-            t[which].append(_time_ops(fn, recorded))
-        out[name] = dict(max_abs_err=err[name], ms=float(np.mean(t["kernel"])),
-                         plain_ms=float(np.mean(t["plain"])))
+        plain_ms, ms = _pair_times(plain, kernel, recorded)
+        bound_ms, bound_by = _bound(*np.mean(work[name], axis=0))
+        out[name] = dict(max_abs_err=err[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
         print(f"[sgs-parity] {name}: kernel {out[name]['ms']:.4f} ms, plain "
               f"{out[name]['plain_ms']:.4f} ms per launch at {N} chains x "
-              f"{GRID}^2, SB={SB} ({card}; CUDA events, {len(recorded)} "
-              f"launches x 2 each)", flush=True)
+              f"{GRID}^2, SB={SB} | bound {bound_ms:.4f} ms by {bound_by} "
+              f"({card}; CUDA events, {len(recorded)} launches x 2 each)",
+              flush=True)
     return out
 
 
@@ -641,7 +766,7 @@ def phase_sgs_main_path(chain, p, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, traces = sampler.run(states, n_iter, segment_size=SGS_SEGMENT,
-                                 progress=True)
+                                 progress=False)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
@@ -702,6 +827,324 @@ def phase_sgs_main_path(chain, p, card):
     return launches
 
 
+def phase_noise_vs_plain(chain, card):
+    """The Philox noise kernel against its plain version at the CRF
+    headline's half-spectrum shape (768 chains x 2B x (B/2 + 1))."""
+    import torch
+
+    from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                                 batched_normal_reference,
+                                                 draw_seed)
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device(DEVICE)
+    static, _ = chain.build(dev)
+    B = static.rf.B
+    shape = (N_CHAINS, 2 * B, B // 2 + 1)
+    gen = make_generator(21, dev)
+    seeds = [draw_seed(gen, dev) for _ in range(NOISE_SEEDS)]
+    err = 0.0
+    n_far = 0
+    for seed in seeds:
+        z = batched_normal(seed, *shape)
+        diff = (z - batched_normal_reference(seed, *shape)).abs()
+        err = max(err, float(diff.max()))
+        n_far += int((diff > NOISE_ATOL).sum())
+    z = batched_normal(seeds[0], *shape)
+    same = torch.equal(z, batched_normal(seeds[0], *shape))
+    mean, std = float(z.mean()), float(z.std())
+    zmax = float(z.abs().max())
+    n_corr = min(64, shape[0])
+    corr = torch.corrcoef(z[:n_corr].reshape(n_corr, -1).double())
+    corr_max = float((corr - torch.eye(n_corr, dtype=corr.dtype,
+                                       device=dev)).abs().max())
+    recorded = [(seed,) + shape for seed in seeds]
+    plain_ms, ms = _pair_times(batched_normal_reference, batched_normal,
+                               recorded)
+    lib_gen = make_generator(22, dev)
+    library_ms = _time_ops(
+        lambda: torch.randn(shape, generator=lib_gen, device=dev),
+        [()] * NOISE_SEEDS)
+    bound_ms, bound_by = _bound(4.0 * np.prod(shape) + 8)
+    print(f"[noise] {NOISE_SEEDS} launches of {shape}: max |kernel - plain| "
+          f"{err:.3e}, {n_far} values beyond {NOISE_ATOL:g} (bound 0) | "
+          f"deterministic {same} | mean {mean:.3e}, std {std:.5f}, max |z| "
+          f"{zmax:.4f} (cap {NOISE_CAP}) | largest cross-chain |corr| over "
+          f"{n_corr} chains {corr_max:.4f} (bound {NOISE_CORR_MAX}) ({card})",
+          flush=True)
+    print(f"[noise] per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.randn of the same shape {library_ms:.4f} ms | bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({card}; CUDA events)",
+          flush=True)
+    if (n_far or not same or abs(mean) > NOISE_MOMENT_TOL
+            or abs(std - 1.0) > NOISE_MOMENT_TOL or zmax > NOISE_CAP
+            or corr_max >= NOISE_CORR_MAX):
+        raise RuntimeError("the noise kernel disagrees with its plain "
+                           "version or is not N(0, 1)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_crf_step_vs_plain(chain, card):
+    """The whole CRF step (noise kernel, cuFFT, window kernel) against the
+    plain step (plain Philox, plain window op) from the same state and
+    generator state, 20 steps, the chains advancing on the kernels'."""
+    import torch
+
+    from mcmc_tpu_torch.models.chain_crf import init_state, make_step
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    static, consts = chain.build(torch.device(DEVICE))
+    fused = make_step(static, "auto")
+    plain = make_step(static, "eager")
+    state = init_state(chain.initial_bed, consts, N_CHAINS)
+    gen = make_generator(5, DEVICE)
+    n_flip = 0
+    for _ in range(PARITY_STEPS):
+        shadow = _clone_state(state)
+        gen_p = torch.Generator(device=DEVICE)
+        gen_p.set_state(gen.get_state())
+        _, tr_p = plain(consts, shadow, gen_p)
+        del shadow
+        state, tr = fused(consts, state, gen)
+        n_flip += int((tr["step"] != tr_p["step"]).sum())
+    flip_rate = n_flip / (PARITY_STEPS * N_CHAINS)
+    print(f"[crf-step] {PARITY_STEPS} steps x {N_CHAINS} chains against "
+          f"the plain step (same draws): MH flips {n_flip} = "
+          f"{flip_rate:.3e} (bound {FLIP_RATE_MAX:g}) ({card})", flush=True)
+    if flip_rate > FLIP_RATE_MAX:
+        raise RuntimeError("the CRF step on the kernels departs from the "
+                           "plain one")
+
+
+def make_spherical_chain(p):
+    """The SGS headline with a spherical 10 km variogram: no mixture fit,
+    so the packed solve gathers Sigma from the covariance stamp."""
+    chain = make_sgs_chain(p)
+    chain.set_variogram("Spherical", 10e3, 1.0, 0.0)
+    return chain
+
+
+def phase_masked_cg_vs_plain(chain, card):
+    """The CG on a given Sigma against its plain version through 10 steps
+    at the spherical SGS headline, the state advancing on the kernels'
+    results; a plain step from the same state and draws counts the MH
+    decisions that flip."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.cg_kernel import masked_cg, masked_cg_reference
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device(DEVICE)
+    static, consts = chain.build(dev)
+    print(f"[sph-parity] SB {static.SB}, K {static.K}, NE {static.NE}, NA "
+          f"{static.NA}, Mg {static.Mg}, Me {static.Me}, cg_iters "
+          f"{static.cg_iters}", flush=True)
+    if static.Mg + static.Me != 0 or static.cg_iters != 48:
+        raise RuntimeError("the spherical headline must take the given-Sigma "
+                           "CG at 48 iterations")
+    N, K = SGS_CHAINS, static.K
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, N)
+    kernel_step = sgs.make_sgs_kernel(static, "auto")
+    plain_step = sgs.make_sgs_kernel(static, "eager")
+    gen = make_generator(13, dev)
+    err = 0.0
+    viol = n_flip = 0
+    recorded = []
+    for it in range(SPH_PARITY_STEPS):
+        d = sgs.draw(gen, static, consts, N)
+        draws = (d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
+        _, tr_p = plain_step(consts, _clone_state(state),
+                             *draws)
+        geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+        win = sgs.window_extract(consts.stacked, state.fields, geo.sx32,
+                                 geo.sy32, static.SB)
+        prep = sgs.prepare(static, consts, win, geo, d.noise, d.drop_u)
+        Sigma = sgs.stamp_sigma(static, consts, prep)
+        args = (Sigma, prep.m_sel, prep.rhs_p, prep.eps, static.cg_iters)
+        w = masked_cg(*args)
+        w_p = masked_cg_reference(*args)
+        diff = (w - w_p).abs()
+        err = max(err, float(diff.max()))
+        viol += int((diff > CG_ATOL + CG_RTOL * w_p.abs()).sum())
+        if it == 0:
+            n = CG_F64_CHAINS
+            S, m, rhs = [t[:n].contiguous() for t in (Sigma, prep.m_sel,
+                                                      prep.rhs_p)]
+            _cg_vs_float64(
+                "sph-parity",
+                lambda n_iters: masked_cg(S, m, rhs, prep.eps, n_iters),
+                S.double(), prep, static.cg_iters, card)
+        recorded.append(args)
+        state, tr = kernel_step(consts, state, *draws)
+        n_flip += int((tr["step"] != tr_p["step"]).sum())
+    flip_rate = n_flip / (SPH_PARITY_STEPS * N)
+    print(f"[sph-parity] {SPH_PARITY_STEPS} steps x {N} chains: CG on a "
+          f"given Sigma max abs err {err:.3e}, {viol} values beyond rtol/atol "
+          f"{CG_RTOL:g} | MH flips against a plain step {n_flip} = "
+          f"{flip_rate:.3e} (bound {FLIP_RATE_MAX:g})", flush=True)
+    if viol or flip_rate > FLIP_RATE_MAX:
+        raise RuntimeError("the given-Sigma CG kernel disagrees with its "
+                           "plain version")
+    plain_ms, ms = _pair_times(masked_cg_reference, masked_cg, recorded)
+    solve_ms = _time_ops(_linalg_solve, [(a[0], a[1], a[2], a[3])
+                                         for a in recorded])
+    bound_ms, bound_by = _bound(*_cg_work(N, K, static.cg_iters, 4,
+                                          4 * (K * K + 2 * K + 1)))
+    print(f"[sph-parity] masked_cg: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms per launch at {N} chains, K={K}, {static.cg_iters} iterations "
+          f"| bound {bound_ms:.4f} ms by {bound_by} | torch.linalg.solve of "
+          f"the same masked systems to convergence (not the same function) "
+          f"{solve_ms:.4f} ms ({card}; CUDA events, {len(recorded)} launches "
+          f"x 2 each)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def _linalg_solve(Sigma, m, rhs, eps):
+    """The masked systems solved by ``torch.linalg.solve``: a note beside
+    the fixed-iteration CG, which has no one-call counterpart."""
+    import torch
+
+    A = Sigma * m[:, :, None] * m[:, None, :]
+    A = A + torch.diag_embed(eps + (1.0 - m))
+    return torch.linalg.solve(A, m * rhs)
+
+
+def _write_dataset(p, path):
+    np.savez(path, **{k: p[k] for k in (
+        "xx", "yy", "initial_bed", "surf", "velx", "vely", "dhdt", "smb",
+        "cond_bed", "data_mask", "grounded", "region")},
+        resolution=p["resolution"])
+
+
+def _sgs_config(n_iter, out):
+    """``make_spherical_chain``'s configuration as a CLI config."""
+    return {
+        "family": "sgs", "dataset": "dataset.npz",
+        "update_region": {"in_region": True, "mask": "region"},
+        "loss": {"sigma_mc": SIGMA_MC, "mass_conv_in_region": True},
+        "sgs": {
+            "variogram": {"vtype": "Spherical", "range": 10e3, "sill": 1.0,
+                          "nugget": 0.0},
+            "params": {"num_neighbors": 48, "search_radius": 30e3},
+            "blocks": {"min_x": 5, "max_x": 20, "min_y": 5, "max_y": 20},
+            "trend": {"gaussian_sigma": 10.0},
+            "normal_transform": {"n_quantiles": 1000}},
+        "farm": {"n_chains": SGS_CHAINS, "n_iter": n_iter, "rng_seeds": 0,
+                 "output_path": out, "segment_size": ENTRY_SEGMENT,
+                 "checkpoint_every": ENTRY_SGS_ITERS[0]},
+        "save": {"final_beds": f"{out}_beds.npy",
+                 "histories": f"{out}_hist.npz"}}
+
+
+def phase_entry_point(p, card):
+    """The user's entry point at full width (module docstring, phase 11):
+    the spherical SGS farm through the CLI, run, resumed and compared
+    bitwise with an uninterrupted run; the CRF farm through the driver."""
+    import torch
+
+    from mcmc_tpu_torch import cli
+    from mcmc_tpu_torch.drivers import large_scale_chain_farm
+    from mcmc_tpu_torch.ops.cg_kernel import masked_cg, mix_masked_cg
+    from mcmc_tpu_torch.ops.lut_kernel import lut_interp
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+                                                      window_writeback)
+    from mcmc_tpu_torch.ops.window_kernel import fused_window_update
+
+    first, total = ENTRY_SGS_ITERS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        _write_dataset(p, tmp / "dataset.npz")
+
+        def cli_run(n_iter, out, *extra):
+            cfg = tmp / f"{out}.json"
+            cfg.write_text(json.dumps(_sgs_config(n_iter, out)))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main([str(cfg), "--quiet", "--device", DEVICE,
+                               *extra])
+            if rc != 0:
+                raise RuntimeError(f"the CLI returned {rc}")
+            return buf.getvalue()
+
+        kernels = (window_extract, masked_cg, lut_interp, window_writeback)
+        for k in kernels + (mix_masked_cg,):
+            k.launches = 0
+        t0 = time.perf_counter()
+        cli_run(first, "resumed")
+        t1 = time.perf_counter()
+        cli_run(total, "resumed")
+        t2 = time.perf_counter()
+        cli_run(total, "straight")
+        t3 = time.perf_counter()
+        launches = {k.__name__: k.launches for k in kernels}
+        steps = (first - 1) + (total - first) + (total - 1)
+        info = cli_run(total, "resumed", "--info")
+        same = {}
+        with np.load(tmp / "resumed_hist.npz") as a, \
+                np.load(tmp / "straight_hist.npz") as b:
+            for key in a.files:
+                same[key] = bool(np.array_equal(
+                    a[key], b[key], equal_nan=a[key].dtype.kind == "f"))
+            shape = a["loss"].shape
+            loss = a["loss"]
+            acc = float(np.mean(a["steps"][:, 1:]))
+        same["final_beds"] = bool(np.array_equal(
+            np.load(tmp / "resumed_beds.npy"),
+            np.load(tmp / "straight_beds.npy")))
+    print(f"[entry] SGS spherical, {SGS_CHAINS} chains x {GRID}^2 through "
+          f"python -m mcmc_tpu_torch: {first} iterations {t1 - t0:.1f} s, "
+          f"resumed to {total} {t2 - t1:.1f} s, uninterrupted {total} "
+          f"{t3 - t2:.1f} s (each with its build and checkpoint writes) | "
+          f"traces {shape}, acc {acc:.3f}, loss mean {loss[:, 0].mean():.6e}"
+          f" -> {loss[:, -1].mean():.6e} | resumed == uninterrupted, bitwise: "
+          f"{same} | launches {launches} in {steps} steps, mixture CG "
+          f"{mix_masked_cg.launches} ({card})", flush=True)
+    print("[entry] --info: " + " | ".join(info.strip().splitlines()),
+          flush=True)
+    if not all(same.values()):
+        raise RuntimeError("the resumed farm departs from the uninterrupted "
+                           "one")
+    if shape != (SGS_CHAINS, total) or not np.isfinite(loss).all():
+        raise RuntimeError(f"SGS traces {shape}, finite "
+                           f"{np.isfinite(loss).all()}")
+    if not loss[:, -1].mean() < loss[:, 0].mean():
+        raise RuntimeError("the SGS loss did not decrease through the CLI")
+    if any(n != steps for n in launches.values()) or mix_masked_cg.launches:
+        raise RuntimeError(f"kernel launches {launches} in {steps} steps")
+    if f"checkpoint @ iter {total}" not in info:
+        raise RuntimeError("--info does not list the checkpoint")
+
+    fused_window_update.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        t0 = time.perf_counter()
+        results = large_scale_chain_farm(
+            make_chain(p), N_CHAINS, rng_seeds=0, n_iter=ENTRY_CRF_ITERS,
+            output_path=tmp, segment_size=ENTRY_CRF_ITERS, progress=False,
+            quiet=True, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    crf_launches = fused_window_update.launches
+    loss = np.stack([r[3] for r in results])
+    beds = np.stack([r[0] for r in results])
+    print(f"[entry] CRF, {N_CHAINS} chains x {GRID}^2 through "
+          f"large_scale_chain_farm: {ENTRY_CRF_ITERS} iterations in "
+          f"{elapsed:.1f} s with build and checkpoint | loss mean "
+          f"{loss[:, 0].mean():.6e} -> {loss[:, -1].mean():.6e} | window "
+          f"kernel launches {crf_launches} ({card})", flush=True)
+    if crf_launches != ENTRY_CRF_ITERS - 1:
+        raise RuntimeError(f"the window kernel ran {crf_launches} times")
+    if loss.shape != (N_CHAINS, ENTRY_CRF_ITERS) or not (
+            np.isfinite(loss).all() and np.isfinite(beds).all()):
+        raise RuntimeError("non-finite CRF farm results")
+    if not loss[:, -1].mean() < loss[:, 0].mean():
+        raise RuntimeError("the CRF loss did not decrease through the driver")
+    return launches["masked_cg"]
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6):
     """Device-busy share of a short steady window from torch.profiler,
     against the profiled wall time and against ``step_us``, the main
@@ -753,33 +1196,32 @@ def main():
     phase_build()
     p = build_problem()
     chain = make_chain(p)
-    parity = phase_kernel_vs_plain(chain, card)
+    rows = {"fused_window_update": phase_kernel_vs_plain(chain, card)}
     phase_irfft2(chain)
     launches = phase_main_path(chain, card)
-    del chain
     sgs_chain = make_sgs_chain(p)
     sgs_parity = phase_sgs_kernels_vs_plain(sgs_chain, card)
     sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
-    rows = [dict(name="fused_window_update", source="window_kernel.cu",
-                 replaces="mcmc_tpu/ops/window_kernel.py:60",
-                 launches=launches, **parity)]
-    for kernel, key, src, replaces in (
-            ("window_extract", "extract", "sgs_window_kernel.cu",
-             "mcmc_tpu/ops/sgs_window_kernel.py:67"),
-            ("window_writeback", "writeback", "sgs_window_kernel.cu",
-             "mcmc_tpu/ops/sgs_window_kernel.py:151"),
-            ("mix_masked_cg", "cg", "cg_kernel.cu",
-             "mcmc_tpu/ops/cg_kernel.py:232"),
-            ("lut_interp", "lut", "lut_kernel.cu",
-             "mcmc_tpu/ops/lut_kernel.py:97")):
-        rows.append(dict(name=kernel, source=src, replaces=replaces,
-                         launches=sgs_launches[kernel], **sgs_parity[key]))
+    del sgs_chain
+    for kernel, key in (("window_extract", "extract"),
+                        ("window_writeback", "writeback"),
+                        ("mix_masked_cg", "cg"), ("lut_interp", "lut")):
+        rows[kernel] = sgs_parity[key]
+        launches[kernel] = sgs_launches[kernel]
+    rows["batched_normal"] = phase_noise_vs_plain(chain, card)
+    phase_crf_step_vs_plain(chain, card)
+    del chain
+    rows["masked_cg"] = phase_masked_cg_vs_plain(make_spherical_chain(p),
+                                                 card)
+    launches["masked_cg"] = phase_entry_point(p, card)
     print(json.dumps({"kernels": [{
-        "name": r["name"], "route": "cuda",
-        "source": "mcmc_tpu_torch/ops/csrc/" + r["source"],
-        "replaces": r["replaces"], "launches": r["launches"],
-        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"]} for r in rows]}), flush=True)
+        "name": kernel, "route": "cuda",
+        "source": "mcmc_tpu_torch/ops/csrc/" + source,
+        "replaces": replaces, "launches": launches[kernel],
+        **{k: rows[kernel][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}} for kernel, source, replaces in KERNELS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

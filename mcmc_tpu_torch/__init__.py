@@ -2,20 +2,25 @@
 
 Geostatistical MCMC for subglacial topography on an NVIDIA GPU: the
 large-scale CRF (random-field block proposal) chain farm and the
-small-scale SGS (block re-simulation) chain farm, with their Pallas TPU
-kernels as hand-written CUDA kernels for Hopper (``ops/csrc/*.cu``: the
-CRF window update; the SGS window extract and writeback, mixture-system
-CG and inverse LUT).  The JAX package ``mcmc_tpu`` is the reference that
-every part of this package is tested against; this package imports
-neither it nor JAX.
+small-scale SGS (block re-simulation) chain farm, their drivers,
+checkpoint/resume and CLI, with every Pallas TPU kernel of the JAX
+package as a hand-written CUDA kernel for Hopper (``ops/csrc/*.cu``: the
+CRF window update and Philox proposal noise; the SGS window extract and
+writeback, the two packed CG solves and the inverse LUT).  The JAX
+package ``mcmc_tpu`` is the reference that every part of this package is
+tested against; this package imports neither it nor JAX.  Everything runs
+on the card unless the caller asks for the CPU.
 
 Main path (``ChainSGS`` the same way, with its own setters)::
 
     chain = ChainCRF(...); chain.set_update_region(...); ...
-    sampler = MultiChainSampler(chain, n_chains, device="cuda")
+    sampler = MultiChainSampler(chain, n_chains)   # device="cuda"
     states = sampler.init(seeds=0)
     states, traces = sampler.run(states, n_iter, segment_size)
     sampler.diagnostics(traces, elapsed_seconds)
+
+or, with checkpoint/resume, ``drivers.large_scale_chain_farm`` /
+``small_scale_chain_farm``, or ``python -m mcmc_tpu_torch cfg.json``.
 """
 
 from .models.chain_crf import ChainCRF

@@ -41,7 +41,7 @@ from ..ops.window_kernel import (fused_window_update,
                                  window_geometry)
 from ..utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                             WeightConfig)
-from ..utils.rng import resolve_seed
+from ..utils.rng import resolve_device, resolve_seed
 from .randfield import (RandFieldArrays, RandFieldStatic, build_randfield,
                         draw_block_params, finish_block)
 
@@ -194,13 +194,15 @@ def init_state(beds, consts: CRFConsts, n_chains: Optional[int] = None
 
 
 def draw(gen: torch.Generator, static: CRFStatic, consts: CRFConsts,
-         n: int) -> Draws:
-    """One step's draws for ``n`` chains from ``gen``."""
+         n: int, impl: str = "auto") -> Draws:
+    """One step's draws for ``n`` chains from ``gen``; the half-spectrum
+    noise comes from the Philox kernel, or its plain version under
+    ``impl="eager"`` (``ops/spectral.half_spectrum_noise``)."""
     B = static.rf.B
     device = consts.stacked.device
     size_idx, scale, nug, range_x, range_y = draw_block_params(
         gen, n, static.rf, consts.rf)
-    noise = half_spectrum_noise(gen, n, (B, B), device)
+    noise = half_spectrum_noise(gen, n, (B, B), device, impl)
     nugget_noise = None
     if static.rf.has_nugget:
         nugget_noise = torch.randn((n, B, B), generator=gen, device=device)
@@ -308,11 +310,14 @@ def sample_probes(beds, sample_ij, n):
 
 def make_step(static: CRFStatic, impl: str = "auto"):
     """Build the full batched MH step: ``(consts, state, gen) -> (state,
-    trace)`` (draws, spectral proposal, window op, ledger, trace)."""
+    trace)`` (draws, spectral proposal, window op, ledger, trace).  The
+    draws' half-spectrum noise comes from the Philox kernel
+    (``ops/noise_kernel.py``), and under ``impl="eager"`` from its plain
+    version, like the window op."""
     mh_update = make_kernel(static, impl)
 
     def step(consts: CRFConsts, state: ChainState, gen: torch.Generator):
-        d = draw(gen, static, consts, state.fields.shape[0])
+        d = draw(gen, static, consts, state.fields.shape[0], impl)
         cx = consts.region_cells[d.cidx, 0]
         cy = consts.region_cells[d.cidx, 1]
         return mh_update(consts, state, propose(static, consts, d),
@@ -503,14 +508,15 @@ class ChainCRF:
                                             - self.sample_loc[k, 0])))
         return ij
 
-    def build(self, device="cpu"):
-        """The configured chain as (CRFStatic, CRFConsts) on ``device``."""
+    def build(self, device="cuda"):
+        """The configured chain as (CRFStatic, CRFConsts) on ``device``
+        (the card unless the caller asks for the CPU)."""
         if self.sigma_mc is None:
             raise ValueError("call set_loss_type before building the chain")
         if self._rf_cfg is None:
             raise ValueError("call configure_randfield before building the "
                              "chain")
-        device = torch.device(device)
+        device = resolve_device(device)
         rf_static, rf_arrays = build_randfield(
             self._rf_cfg, self._block_cfg, self._weight_cfg, device)
         H, W = self.xx.shape

@@ -24,10 +24,11 @@ One batched step runs, in order (``make_sgs_kernel``):
 2. window extract (CUDA kernel, ``ops/sgs_window_kernel.py``);
 3. ``prepare``: roles, the unconditional draw, the K-nearest selection in
    its gather form, the packed right-hand side and coordinates;
-4. the packed solve: the mixture-system CG (CUDA kernel,
-   ``ops/cg_kernel.py``), or on the CPU, for a configuration whose
-   covariance admits no mixture fit, the stamp gather and
-   ``ops/kriging.masked_cg_solve``;
+4. the packed solve (CUDA kernels, ``ops/cg_kernel.py``): the
+   mixture-system CG, or, for a covariance with no mixture fit (a
+   spherical variogram), the stamp gather ``cov_stamp[di, dj]`` (a torch
+   index op, as the JAX package leaves it to XLA) and the CG on that
+   Sigma;
 5. ``draw_z``: scatter-back, kriging adjustment, conditional draw;
 6. the inverse normal-score LUT (CUDA kernel, ``ops/lut_kernel.py``);
 7. ``commit_core``: data-space window, residual patch, thickness guard,
@@ -54,10 +55,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.cg_kernel import mix_masked_cg, mix_masked_cg_reference
+from ..ops.cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
+                             mix_masked_cg_reference)
 from ..ops.covariance import (CovarianceSpec, covariance_norm,
                               fit_cov_mixture, make_rotation_matrix)
-from ..ops.kriging import masked_cg_solve
 from ..ops.lut_kernel import lut_interp, lut_interp_reference
 from ..ops.physics import (masked_gaussian_loss, masked_sq_sum,
                            mass_conservation_residual)
@@ -67,7 +68,7 @@ from ..ops.sgs_window_kernel import (window_extract,
                                      window_writeback_reference)
 from ..ops.transforms import NormalScoreLUT, NormalScoreTransform
 from ..utils.config import LossConfig, SGSParams, VariogramConfig
-from ..utils.rng import resolve_seed
+from ..utils.rng import resolve_device, resolve_seed
 from .chain_crf import IMPLS, chain_loss_mc, sample_probes
 
 N_CONST = 10   # planes of SGSConsts.stacked
@@ -477,35 +478,27 @@ def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
                     jaf=ja.to(torch.float32), eps=eps)
 
 
-def check_solver(static: SGSStatic, impl: str, device) -> None:
-    """Raise where the packed solve has no kernel: a configuration whose
-    covariance admits no mixture fit (e.g. spherical) needs the CG on a
-    given Sigma, which is not ported to CUDA yet."""
-    if (static.Mg + static.Me == 0 and torch.device(device).type == "cuda"
-            and impl != "eager"):
-        raise NotImplementedError(
-            f"the {static.spec.vtype} covariance admits no mixture fit, so "
-            "its packed solve needs the CG kernel on a given Sigma "
-            "(lanes_masked_cg), which is not ported to CUDA yet: ROADMAP "
-            "Queue 2 #5.  Run it on the CPU, or with impl='eager'.")
+def stamp_sigma(static: SGSStatic, consts: SGSConsts, prep: Prepared):
+    """(N, K, K) covariance of the packed neighbours, gathered from the
+    covariance stamp at their wrapped offsets: ``cov_stamp[di, dj]``."""
+    ia = prep.iaf.long()
+    ja = prep.jaf.long()
+    di = torch.remainder(ia[:, :, None] - ia[:, None, :], static.NE)
+    dj = torch.remainder(ja[:, :, None] - ja[:, None, :], static.NE)
+    return consts.cov_stamp[di, dj]
 
 
 def solve(static: SGSStatic, consts: SGSConsts, prep: Prepared,
           impl: str = "auto"):
     """The packed conditioning solve: w (N, K), zero at masked slots."""
+    eager = impl == "eager"
     if static.Mg + static.Me > 0:
-        cg = mix_masked_cg_reference if impl == "eager" else mix_masked_cg
+        cg = mix_masked_cg_reference if eager else mix_masked_cg
         return cg(prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p, prep.eps,
                   static.mix, static.cg_iters)
-    check_solver(static, impl, prep.m_sel.device)
-    NE = static.NE
-    ia = prep.iaf.long()
-    ja = prep.jaf.long()
-    di = torch.remainder(ia[:, :, None] - ia[:, None, :], NE)
-    dj = torch.remainder(ja[:, :, None] - ja[:, None, :], NE)
-    S_cc = consts.cov_stamp[di, dj]
-    return masked_cg_solve(S_cc, prep.m_sel, prep.rhs_p, prep.eps,
-                           static.cg_iters)
+    cg = masked_cg_reference if eager else masked_cg
+    return cg(stamp_sigma(static, consts, prep), prep.m_sel, prep.rhs_p,
+              prep.eps, static.cg_iters)
 
 
 def draw_z(static: SGSStatic, consts: SGSConsts, prep: Prepared, w_p, noise):
@@ -892,8 +885,9 @@ class ChainSGS:
                              np.float32)
         return out
 
-    def build(self, device="cpu"):
-        """The configured chain as (SGSStatic, SGSConsts) on ``device``."""
+    def build(self, device="cuda"):
+        """The configured chain as (SGSStatic, SGSConsts) on ``device``
+        (the card unless the caller asks for the CPU)."""
         if self.sigma_mc is None:
             raise ValueError("call set_loss_type before building the chain")
         if self.vario is None:
@@ -903,7 +897,7 @@ class ChainSGS:
                              "chain")
         if self.sgs_params is None:
             self.sgs_params = SGSParams(num_neighbors=32, search_radius=30e3)
-        device = torch.device(device)
+        device = resolve_device(device)
         H, W = self.xx.shape
         rad_cells = int(np.ceil(self.sgs_params.search_radius
                                 / self.resolution))

@@ -1,36 +1,41 @@
-"""The SGS chain's packed conditioning solve with its system built from the
-covariance mixture, batched over chains.
+"""The SGS chain's packed conditioning solve, batched over chains: fixed-
+iteration conjugate gradients on each chain's masked K x K system
 
-For each chain the K packed conditioning cells sit at window coordinates
-(iaf, jaf) (exact small integers in float32).  The solve builds
+    A = Sigma·m·mᵀ + diag(eps + 1 - m),   b = m·rhs,
 
-    A = S·m·mᵀ + diag(eps + 1 - m),   S_ij = mixture(h2_ij),
-    h2_ij = q0·dj² + q1·dj·di + q2·di²,  di = ia_i - ia_j, dj = ja_i - ja_j
+run ``n_iters`` iterations from zero (the JAX package's ``_cg_core``, with
+its 1e-30 guards), returning ``w·m``.  Two forms, as in the JAX package:
 
-with the static Gaussian+exponential mixture of ``SGSStatic.mix``
-(``ops/covariance.eval_mixture_static``), then runs ``n_iters`` fixed
-conjugate-gradient iterations from zero on ``b = m·rhs`` (the JAX
-package's ``_cg_core``, with its 1e-30 guards) and returns ``w·m``.
+- ``mix_masked_cg``: Sigma built from the static Gaussian+exponential
+  mixture of ``SGSStatic.mix`` (``ops/covariance.eval_mixture_static``) at
+  the packed cells' window coordinates (iaf, jaf), exact small integers in
+  float32:
 
-Three pieces, as for every kernel of the port:
+      Sigma_ij = mixture(h2_ij),  h2_ij = q0·dj² + q1·dj·di + q2·di²,
+      di = ia_i - ia_j, dj = ja_i - ja_j;
 
-- ``mix_masked_cg_reference``: the plain PyTorch version (batched, its
-  sums in the kernel's order);
-- ``csrc/cg_kernel.cu``: the hand-written CUDA kernel for Hopper that
-  replaces the Pallas kernel ``mcmc_tpu/ops/cg_kernel.py::
-  lanes_mix_masked_cg`` (its body ``_cg_lanes_mix_kernel`` and
-  ``_cg_core``);
-- ``mix_masked_cg``: the dispatcher.  A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel or raises.  Nothing falls
-  back.  ``mix_masked_cg.launches`` counts kernel launches.
+- ``masked_cg``: a given (N, K, K) Sigma, for a covariance with no mixture
+  fit (a spherical variogram), gathered by the caller from the covariance
+  stamp.
 
-The plain version sums in the kernel's order, so the two differ only where
+Three pieces each, as for every kernel of the port:
+
+- ``mix_masked_cg_reference`` / ``masked_cg_reference``: the plain
+  PyTorch versions (batched, their sums in the kernel's order, one shared
+  iteration ``_cg_kernel_order``);
+- ``csrc/cg_kernel.cu``: the hand-written CUDA kernels for Hopper that
+  replace the Pallas kernels ``mcmc_tpu/ops/cg_kernel.py::
+  lanes_mix_masked_cg`` and ``lanes_masked_cg`` (bodies
+  ``_cg_lanes_mix_kernel`` and ``_cg_lanes_kernel``, solver ``_cg_core``);
+- ``mix_masked_cg`` / ``masked_cg``: the dispatchers.  A CPU tensor goes
+  to the plain version; a CUDA tensor launches the kernel or raises.
+  Nothing falls back.  ``.launches`` counts kernel launches.
+
+The plain versions sum in the kernels' order, so they differ only where
 the kernel's ``expf`` and PyTorch's ``exp`` round differently.  Against
-the JAX package's kernel (XLA or Mosaic sums, another ``exp``) they agree
-to float32 roundoff on well-conditioned systems.  The kernel takes K <= 64
-(one CTA of 64 threads per chain) and rejects larger K.
-The same CG on a given (N, K, K) Sigma (``lanes_masked_cg``, the
-stamp-gather fallback) is not ported yet.
+the JAX package's kernels (XLA or Mosaic sums, another ``exp``) they agree
+to float32 roundoff on well-conditioned systems.  The kernels take K <= 64
+(one CTA of 64 threads per chain) and reject larger K.
 """
 
 from __future__ import annotations
@@ -72,29 +77,11 @@ def _kernel_order_sum(v):
     return w[:, 0] + w[:, 1]                      # (N, 1)
 
 
-def mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
-    """Plain PyTorch version (module docstring): iaf, jaf, mask, rhs (N, K)
-    float32, eps a float or (N,), mix = SGSStatic.mix.  Returns w (N, K)
-    with masked slots zeroed.
-
-    Every sum runs in the kernel's order (the matvec over j rising, the
-    dot products as the kernel's warp butterflies), one rounding per
-    operation.  At the production configuration the fixed-iteration CG
-    stops far from convergence (condition numbers ~1e4), where two orders
-    of the same float32 sums drift apart by ~1e-3 of the solution; in the
-    same order the plain version and the kernel stay together."""
-    N, K = mask.shape
-    if K > MAX_K:
-        raise ValueError(f"K = {K} packed cells; at most {MAX_K}")
-    q0, q1, q2 = (_f32(q) for q in mix[4])
-    dif = iaf[:, :, None] - iaf[:, None, :]
-    djf = jaf[:, :, None] - jaf[:, None, :]
-    h2 = q0 * djf * djf + q1 * djf * dif + q2 * dif * dif
-    S = eval_mixture_static(mix, h2)
-    m = mask
-    A = S * m[:, :, None] * m[:, None, :]
-    A = A + torch.diag_embed(_eps_vector(eps, N, m)[:, None] + (1.0 - m))
-    cols = A.transpose(1, 2).contiguous()         # cols[:, j] = A[:, :, j]
+def _cg_kernel_order(cols, m, rhs, n_iters: int):
+    """``_cg_core`` in the kernels' order: ``cols[:, j]`` (N, K) is column
+    j of the system, the matvec sums j in rising order, the dot products
+    run as the kernels' warp butterflies, one rounding per operation."""
+    N, K = m.shape
     b = m * rhs
     x = torch.zeros_like(b)
     r = b
@@ -111,6 +98,48 @@ def mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
         p = r + (rs_new / torch.clamp(rs, min=1e-30)) * p
         rs = rs_new
     return x * m
+
+
+def _masked_system(Sigma, m, eps):
+    """``Sigma·m·mᵀ + diag(eps + 1 - m)`` (the JAX package's
+    ``_masked_system``), eps a float or (N,)."""
+    A = Sigma * m[:, :, None] * m[:, None, :]
+    return A + torch.diag_embed(_eps_vector(eps, m.shape[0], m)[:, None]
+                                + (1.0 - m))
+
+
+def mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
+    """Plain PyTorch version of the mixture-system CG (module docstring):
+    iaf, jaf, mask, rhs (N, K) float32, eps a float or (N,), mix =
+    SGSStatic.mix.  Returns w (N, K) with masked slots zeroed.
+
+    At the production configuration the fixed-iteration CG stops far from
+    convergence (condition numbers ~1e4), where two orders of the same
+    float32 sums drift apart by ~1e-3 of the solution; in the same order
+    the plain version and the kernel stay together."""
+    N, K = mask.shape
+    if K > MAX_K:
+        raise ValueError(f"K = {K} packed cells; at most {MAX_K}")
+    q0, q1, q2 = (_f32(q) for q in mix[4])
+    dif = iaf[:, :, None] - iaf[:, None, :]
+    djf = jaf[:, :, None] - jaf[:, None, :]
+    h2 = q0 * djf * djf + q1 * djf * dif + q2 * dif * dif
+    A = _masked_system(eval_mixture_static(mix, h2), mask, eps)
+    cols = A.transpose(1, 2).contiguous()         # cols[:, j] = A[:, :, j]
+    return _cg_kernel_order(cols, mask, rhs, n_iters)
+
+
+def masked_cg_reference(Sigma, mask, rhs, eps, n_iters: int = 48):
+    """Plain PyTorch version of the CG on a given Sigma (module
+    docstring): Sigma (N, K, K), mask, rhs (N, K) float32, eps a float or
+    (N,).  Returns w (N, K) with masked slots zeroed.  Row j of the masked
+    system serves as column j, as in the kernel and in ``_cg_core``
+    (Sigma is symmetric)."""
+    N, K = mask.shape
+    if K > MAX_K:
+        raise ValueError(f"K = {K} packed cells; at most {MAX_K}")
+    A = _masked_system(Sigma, mask, eps).contiguous()  # A[:, j] = row j
+    return _cg_kernel_order(A, mask, rhs, n_iters)
 
 
 class _Family(ctypes.Structure):
@@ -167,54 +196,92 @@ def _cuda_library():
             [ctypes.c_void_p] * 6 + [ctypes.POINTER(_Mix)]
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.mcmc_mix_masked_cg.restype = ctypes.c_int
+        lib.mcmc_masked_cg.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.mcmc_masked_cg.restype = ctypes.c_int
         lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
-    """Mixture-system CG (module docstring): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    if mask.device.type == "cpu":
-        return mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix,
-                                       n_iters)
-    if mask.device.type != "cuda":
+def _check_operands(mask, named, shapes):
+    """The kernels' operand rules, held on both devices: a CPU or CUDA
+    device, K <= MAX_K, every tensor float32, contiguous, on mask's
+    device, of its expected shape."""
+    if mask.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no CG kernel for device {mask.device}")
-    if len(mix) != 5 or not (mix[0] or mix[2]):
-        raise ValueError("mix_masked_cg needs a non-empty mixture "
-                         "(SGSStatic.mix)")
     N, K = mask.shape
     if K > MAX_K:
         raise ValueError(f"the CG kernel takes K <= {MAX_K} packed "
                          f"conditioning cells (one CTA of {MAX_K} threads "
                          f"per chain); got K = {K}")
-    for name, t in (("iaf", iaf), ("jaf", jaf), ("mask", mask),
-                    ("rhs", rhs)):
+    for (name, t), shape in zip(named, shapes):
         if t.device != mask.device:
             raise ValueError(f"{name} is on {t.device}, mask on "
                              f"{mask.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != (N, K):
-            raise ValueError(f"{name} must have shape {(N, K)}, got "
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    eps_v = _eps_vector(eps, N, mask)
-    params = mix_params(mix)
-    lib = _cuda_library()
+
+
+def _launch(fn, mask, pointers, params):
+    """Allocate w, launch ``fn(*pointers, w, *params, stream)`` on the
+    current stream, raise on a refused launch."""
+    N, K = mask.shape
     out = torch.empty((N, K), dtype=torch.float32, device=mask.device)
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     with torch.cuda.device(mask.device):
-        err = lib.mcmc_mix_masked_cg(
-            iaf.data_ptr(), jaf.data_ptr(), mask.data_ptr(), rhs.data_ptr(),
-            eps_v.data_ptr(), out.data_ptr(), ctypes.byref(params), N, K,
-            int(n_iters), stream)
+        err = fn(*pointers, out.data_ptr(), *params, stream)
     if err != 0:
-        msg = lib.mcmc_cuda_error_string(err).decode()
+        msg = _cuda_library().mcmc_cuda_error_string(err).decode()
         raise RuntimeError(f"CG kernel launch failed: {msg} ({err})")
+    return out
+
+
+def mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
+    """Mixture-system CG (module docstring): the operands checked, then
+    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if len(mix) != 5 or not (mix[0] or mix[2]):
+        raise ValueError("mix_masked_cg needs a non-empty mixture "
+                         "(SGSStatic.mix)")
+    N, K = mask.shape
+    _check_operands(mask, (("iaf", iaf), ("jaf", jaf), ("mask", mask),
+                           ("rhs", rhs)), [(N, K)] * 4)
+    if mask.device.type == "cpu":
+        return mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix,
+                                       n_iters)
+    eps_v = _eps_vector(eps, N, mask)
+    params = mix_params(mix)
+    lib = _cuda_library()
+    out = _launch(lib.mcmc_mix_masked_cg, mask,
+                  [t.data_ptr() for t in (iaf, jaf, mask, rhs, eps_v)],
+                  (ctypes.byref(params), N, K, int(n_iters)))
     mix_masked_cg.launches += 1
     return out
 
 
 mix_masked_cg.launches = 0
+
+
+def masked_cg(Sigma, mask, rhs, eps, n_iters: int = 48):
+    """CG on a given Sigma (module docstring): the operands checked, then
+    the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    N, K = mask.shape
+    _check_operands(mask, (("Sigma", Sigma), ("mask", mask), ("rhs", rhs)),
+                    [(N, K, K), (N, K), (N, K)])
+    if mask.device.type == "cpu":
+        return masked_cg_reference(Sigma, mask, rhs, eps, n_iters)
+    eps_v = _eps_vector(eps, N, mask)
+    lib = _cuda_library()
+    out = _launch(lib.mcmc_masked_cg, mask,
+                  [t.data_ptr() for t in (Sigma, mask, rhs, eps_v)],
+                  (N, K, int(n_iters)))
+    masked_cg.launches += 1
+    return out
+
+
+masked_cg.launches = 0

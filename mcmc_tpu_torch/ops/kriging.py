@@ -5,10 +5,11 @@ PyTorch counterpart of ``masked_cg_solve`` and ``masked_spd_solve`` in
 
     (M Sigma M + (I - M) + eps I) w = M rhs,   M = diag(mask)
 
-for per-chain (n, n) ``Sigma``.  The chain's default path builds Sigma
-from the covariance mixture inside a CUDA kernel (``ops/cg_kernel.py``);
-``masked_cg_solve`` serves the stamp-gather fallback on the CPU.  The
-simple- and ordinary-kriging solves belong to ``geostats`` and wait.
+for per-chain (n, n) ``Sigma``.  The SGS chain does not call them: its
+packed solve is the CG of ``ops/cg_kernel.py`` (a CUDA kernel, its plain
+version summing in the kernel's order).  These are the JAX package's
+general solves, batched.  The simple- and ordinary-kriging solves belong
+to ``geostats`` and wait.
 """
 
 from __future__ import annotations

@@ -1,0 +1,155 @@
+"""Batched standard normals for the CRF chain's half-spectrum proposal
+noise, from a counter-based generator.
+
+PyTorch counterpart of ``mcmc_tpu/ops/noise_kernel.py`` (the JAX
+package's opt-in hardware-PRNG draw).  The card has no hardware
+generator, so the bits come from Philox4x32-10 keyed by one 64-bit seed
+and countered by (call, chain, 0, 0): every output is a pure function of
+(seed, chain, index), so the kernel and its plain version agree whatever
+their launch layouts.  The bits then go through the JAX kernel's
+Box–Muller transform unchanged (``box_muller``): 24-bit uniforms, ``u1``
+offset by 2⁻²⁵, cos into the first half of the rows and sin into the
+second, the tail capped at √(50 ln 2) ≈ 5.887.
+
+Three pieces, as for every kernel of the port:
+
+- ``batched_normal_reference``: the plain PyTorch version, Philox in int64
+  arithmetic masked to 32 bits (the 32 × 32-bit products split into
+  16-bit halves so they do not overflow);
+- ``csrc/noise_kernel.cu``: the hand-written CUDA kernel for Hopper that
+  replaces the Pallas kernel ``mcmc_tpu/ops/noise_kernel.py::
+  batched_normal`` (body ``_noise_kernel``);
+- ``batched_normal``: the dispatcher.  A CPU seed goes to the plain
+  version; a CUDA seed launches the kernel or raises.  Nothing falls
+  back.  ``batched_normal.launches`` counts kernel launches.
+
+The seed is a one-element int64 tensor on the device (``draw_seed``
+draws it from the sampler's generator), read by the kernel from device
+memory, so no draw waits for the host.  Its low word is Philox's key 0,
+its high word key 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)   # Philox4x32 round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)   # Weyl key increments
+TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def draw_seed(gen: torch.Generator, device) -> torch.Tensor:
+    """A (1,) int64 seed on ``device`` from ``gen`` (63 random bits; no
+    host synchronisation)."""
+    return torch.empty((1,), dtype=torch.int64, device=device).random_(
+        generator=gen)
+
+
+def _mulhilo(a: int, b):
+    """(hi, lo) 32-bit words of ``a * b`` for a constant ``a`` < 2³² and
+    int64 ``b`` < 2³², without overflowing int64: b splits into 16-bit
+    halves, each partial product < 2⁴⁸."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & M32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors holding 32-bit words (counter c0..c3,
+    key k0, k1; broadcast together).  Returns the four output words."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W[0]) & M32
+            k1 = (k1 + PHILOX_W[1]) & M32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def box_muller(bits1, bits2):
+    """The JAX kernel's transform (``noise_kernel.py:67-76``) of integer
+    words: their low 24 bits as uniforms, ``u1 = b1·2⁻²⁴ + 2⁻²⁵``,
+    ``u2 = b2·2⁻²⁴``.  Returns (r cos t, r sin t) in float32."""
+    u1 = (bits1 & 0xFFFFFF).to(torch.float32) * 2.0 ** -24 + 2.0 ** -25
+    u2 = (bits2 & 0xFFFFFF).to(torch.float32) * 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    t = TWO_PI * u2
+    return r * torch.cos(t), r * torch.sin(t)
+
+
+def _check_rows(rows: int):
+    if rows % 2:
+        raise ValueError("rows must be even (sin/cos Box-Muller pairs)")
+
+
+def batched_normal_reference(seed, n: int, rows: int, cols: int):
+    """Plain PyTorch version (module docstring): (n, rows, cols) float32
+    normals from the (1,) int64 ``seed`` tensor, on its device."""
+    _check_rows(rows)
+    pairs = rows // 2 * cols
+    calls = (pairs + 1) // 2
+    s = seed.reshape(()).to(torch.int64)
+    k0, k1 = s & M32, (s >> 32) & M32
+    call = torch.arange(calls, dtype=torch.int64, device=seed.device)
+    chain = torch.arange(n, dtype=torch.int64, device=seed.device)
+    call, chain = call[None, :].expand(n, calls), chain[:, None].expand(
+        n, calls)
+    zero = torch.zeros_like(call)
+    w0, w1, w2, w3 = philox4x32_10(call, chain, zero, zero, k0, k1)
+    # pair 2c takes words (0, 1), pair 2c + 1 words (2, 3)
+    b1 = torch.stack([w0, w2], dim=-1).reshape(n, 2 * calls)[:, :pairs]
+    b2 = torch.stack([w1, w3], dim=-1).reshape(n, 2 * calls)[:, :pairs]
+    zc, zs = box_muller(b1, b2)
+    return torch.cat([zc, zs], dim=1).reshape(n, rows, cols)
+
+
+def _cuda_library():
+    from .cuda_build import load_library
+
+    lib = load_library("noise_kernel").lib
+    if lib.mcmc_batched_normal.argtypes is None:  # else pointers are cut
+        lib.mcmc_batched_normal.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.mcmc_batched_normal.restype = ctypes.c_int
+        lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def batched_normal(seed, n: int, rows: int, cols: int):
+    """(n, rows, cols) float32 standard normals (module docstring): the
+    seed and sizes checked, then the plain version for a CPU seed, the
+    CUDA kernel for a CUDA seed."""
+    _check_rows(rows)
+    if seed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no noise kernel for device {seed.device}")
+    if seed.dtype != torch.int64 or seed.numel() != 1:
+        raise TypeError(f"seed must be one int64 value, got {seed.dtype} "
+                        f"of shape {tuple(seed.shape)}")
+    if n * rows * cols >= 2 ** 31:
+        raise ValueError(f"{n} x {rows} x {cols} normals: the kernel takes "
+                         "fewer than 2^31 per launch")
+    if seed.device.type == "cpu":
+        return batched_normal_reference(seed, n, rows, cols)
+    seed = seed.contiguous()
+    out = torch.empty((n, rows, cols), dtype=torch.float32,
+                      device=seed.device)
+    lib = _cuda_library()
+    stream = torch.cuda.current_stream(seed.device).cuda_stream
+    with torch.cuda.device(seed.device):
+        err = lib.mcmc_batched_normal(seed.data_ptr(), out.data_ptr(), n,
+                                      rows, cols, stream)
+    if err != 0:
+        msg = lib.mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"noise kernel launch failed: {msg} ({err})")
+    batched_normal.launches += 1
+    return out
+
+
+batched_normal.launches = 0

@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from .noise_kernel import batched_normal, batched_normal_reference, draw_seed
+
 
 def _uniform(gen, n, lo, hi, device):
     """(n,) float32 uniform draws on [lo, hi)."""
@@ -91,12 +93,18 @@ def spectral_field_from_noise(noise, shape, res, model_name: str, range_x,
     return torch.fft.irfft2(spec, s=tuple(shape)).to(torch.float32)
 
 
-def half_spectrum_noise(gen, n, shape, device):
-    """(n, ny, nx//2+1) complex64 standard white noise."""
-    nh = (n, shape[0], shape[1] // 2 + 1)
-    re = torch.randn(nh, generator=gen, device=device, dtype=torch.float32)
-    im = torch.randn(nh, generator=gen, device=device, dtype=torch.float32)
-    return torch.complex(re, im)
+def half_spectrum_noise(gen, n, shape, device, impl: str = "auto"):
+    """(n, ny, nx//2+1) complex64 standard white noise: one seed from
+    ``gen``, then (n, 2·ny, nx//2+1) Philox normals
+    (``ops/noise_kernel.py``), the first ny rows the real parts and the
+    rest the imaginary, as the JAX package's hardware-PRNG path assembles
+    them (``chain_crf.py:424-425``).  ``impl="eager"`` draws them with the
+    plain version, anything else through the dispatcher (the kernel for a
+    CUDA device)."""
+    ny, nh = shape[0], shape[1] // 2 + 1
+    normal = batched_normal_reference if impl == "eager" else batched_normal
+    zn = normal(draw_seed(gen, device), n, 2 * ny, nh)
+    return torch.complex(zn[:, :ny], zn[:, ny:])
 
 
 def spectral_field(gen, n, shape, res, model_name: str, range_x, range_y,

@@ -13,27 +13,31 @@ Both chain families run here: a ``ChainCRF`` steps through
 ``models/chain_sgs.make_sgs_step``.  Not carried over from the JAX package:
 the device mesh, chunked launches (``scan_chunked``) and grid auto-padding,
 which were TPU workarounds; per-chain seed lists and multi-GPU sharding
-wait for later slices (ROADMAP Queue 1).
+wait for later slices (ROADMAP Queue 1).  The generator's state goes in
+and out for checkpoints (``io/checkpoint.py``).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..models.chain_crf import ChainState, IMPLS, init_state, make_step
-from ..models.chain_sgs import (ChainSGS, SGSState, check_solver,
-                                make_sgs_step, sgs_init_state)
-from ..utils.rng import make_generator
+from ..models.chain_sgs import (ChainSGS, SGSState, make_sgs_step,
+                                sgs_init_state)
+from ..utils.progress import MultiChainProgress
+from ..utils.rng import (generator_state, make_generator, resolve_device,
+                         restore_generator)
 
 
 class MultiChainSampler:
     """Farm of ``n_chains`` chains built from one prototype ``ChainCRF`` or
     ``ChainSGS``.
 
+    ``device``: the card (``None`` or "cuda") unless the caller asks for
+    the CPU; with no card, ``None`` raises rather than running elsewhere.
     ``impl``: "auto" runs the CUDA kernels for CUDA tensors and their
     plain versions for CPU ones; "eager" always runs the plain versions;
     "fused" demands the kernels and raises on a CPU device.
@@ -43,9 +47,7 @@ class MultiChainSampler:
                  impl: str = "auto"):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         if impl == "fused" and self.device.type != "cuda":
             raise ValueError("impl='fused' runs the CUDA kernels and needs a "
                              f"CUDA device, not {self.device}")
@@ -54,11 +56,8 @@ class MultiChainSampler:
         self.impl = impl
         self.is_sgs = isinstance(chain, ChainSGS)
         self.static, self.consts = chain.build(self.device)
-        if self.is_sgs:
-            check_solver(self.static, impl, self.device)
-            self._step = make_sgs_step(self.static, impl)
-        else:
-            self._step = make_step(self.static, impl)
+        self._step = (make_sgs_step if self.is_sgs else make_step)(
+            self.static, impl)
         self.generator = None
 
     # -- state ---------------------------------------------------------------
@@ -93,6 +92,18 @@ class MultiChainSampler:
             return sgs_init_state(beds, self.consts, z0,
                                   self.static.use_transform, self.n_chains)
         return init_state(beds, self.consts, self.n_chains)
+
+    def generator_state(self):
+        """``(kind, uint8 state)`` of the sampler's generator, for a
+        checkpoint (``utils/rng.generator_state``)."""
+        if self.generator is None:
+            raise RuntimeError("call init() before reading the generator")
+        return generator_state(self.generator)
+
+    def restore_generator(self, kind: str, state) -> None:
+        """Continue the stream a checkpoint stored; a state of another
+        generator kind than this device's raises."""
+        self.generator = restore_generator(kind, state, self.device)
 
     # -- execution -----------------------------------------------------------
 
@@ -148,17 +159,19 @@ class MultiChainSampler:
 
         Iteration 0 records the initial state (reference loop semantics);
         ``segment_callback(cumulative_iter, states, traces_np)`` fires after
-        each segment.  Returns (states, traces) with chain-major numpy
-        traces of length n_iter.
+        each segment.  ``progress`` redraws the reference's per-chain
+        progress block (``utils/progress.py``) after each segment.  Returns
+        (states, traces) with chain-major numpy traces of length n_iter.
         """
         n_iter = int(n_iter)
         if n_iter < 1:
             raise ValueError("n_iter must be >= 1 (trace row 0 records "
                              "the initial state)")
+        renderer = (MultiChainProgress(self.n_chains, n_iter) if progress
+                    else None)
         collected = [self._init_row(states)]
         remaining = n_iter - 1
         done = 1
-        t0 = time.time()
         while remaining > 0:
             n = min(int(segment_size), remaining)
             states, traces = self.run_segment(states, n)
@@ -171,14 +184,10 @@ class MultiChainSampler:
                 collected.append(traces_np)
             remaining -= n
             done += n
-            if progress:
-                dt = time.time() - t0
-                loss_np = states.loss_mc.cpu().numpy()
-                acc_np = states.accepted.cpu().numpy() / max(done - 1, 1)
-                print(f"[sampler] iter {done}/{n_iter} | "
-                      f"{(done - 1) * self.n_chains / max(dt, 1e-9):,.0f} "
-                      f"chain-it/s | loss mean {loss_np.mean():.4e} | "
-                      f"acc {acc_np.mean():.3f}", flush=True)
+            if renderer is not None:
+                renderer.update(done, states.loss_mc.cpu().numpy(),
+                                states.accepted.cpu().numpy()
+                                / max(done - 1, 1))
             if segment_callback is not None:
                 segment_callback(done, states, traces_np)
         return states, {k: np.moveaxis(np.concatenate([c[k] for c in

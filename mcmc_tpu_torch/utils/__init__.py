@@ -1,8 +1,11 @@
-"""Host-side helpers of the PyTorch port: typed configs and RNG plumbing."""
+"""Host-side helpers of the PyTorch port: typed configs, RNG plumbing and
+the terminal progress block."""
 
 from .config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                      WeightConfig)
-from .rng import make_generator, resolve_seed
+from .rng import (generator_state, make_generator, resolve_device,
+                  resolve_seed, restore_generator)
 
 __all__ = ["BlockMenuConfig", "LossConfig", "RandFieldConfig",
-           "WeightConfig", "make_generator", "resolve_seed"]
+           "WeightConfig", "generator_state", "make_generator",
+           "resolve_device", "resolve_seed", "restore_generator"]

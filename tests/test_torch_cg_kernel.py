@@ -150,7 +150,7 @@ def test_production_cg_budget_stops_short():
 
     chain = small_sgs_chain(make_synthetic_problem(H=64, W=64),
                             vario=("Matern", 10e3, 1.0, 0.0, 1.3))
-    static, consts = chain.build()
+    static, consts = chain.build("cpu")
     assert static.cg_iters == 64 and static.Mg > 2
     n = 4
     state = sgs.sgs_init_state(chain._initial_detrended, consts,

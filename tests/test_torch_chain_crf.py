@@ -297,9 +297,10 @@ def test_build_refuses_unconfigured_chains(problem):
     args = (p["xx"], p["yy"], p["initial_bed"], p["surf"], p["velx"],
             p["vely"], p["dhdt"], p["smb"], p["cond_bed"], p["data_mask"],
             p["grounded"], p["resolution"])
-    for cls in (ChainCRF, JChainCRF):
-        with pytest.raises(ValueError, match="set_loss_type"):
-            cls(*args).build()
+    with pytest.raises(ValueError, match="set_loss_type"):
+        ChainCRF(*args).build("cpu")
+    with pytest.raises(ValueError, match="set_loss_type"):
+        JChainCRF(*args).build()
     with pytest.raises(ValueError, match="shape"):
         ChainCRF(*args[:2], p["initial_bed"][:10], *args[3:])
 
@@ -307,3 +308,48 @@ def test_build_refuses_unconfigured_chains(problem):
 def test_make_kernel_refuses_unknown_impl(built):
     with pytest.raises(ValueError, match="impl"):
         make_kernel(built["pstatic"], "xla")
+
+
+def test_sampler_with_kernel_noise(problem):
+    """The sampler's proposal noise is the Philox kernel's (on the CPU its
+    plain version): the (N, 2B, B/2 + 1) normals of one seed from the
+    generator, split into real and imaginary halves, for either impl.
+    The same seed gives the same trajectory, another seed another; the
+    loss falls; a nugget configuration (prefinished proposals) draws the
+    same way, and its eager and auto steps agree bitwise on the CPU."""
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.noise_kernel import (batched_normal_reference,
+                                                 draw_seed)
+    from mcmc_tpu_torch.ops.spectral import half_spectrum_noise
+
+    seed = draw_seed(make_generator(3, CPU), CPU)
+    zn = batched_normal_reference(seed, N, 16, 5)
+    for impl in ("auto", "eager"):
+        noise = half_spectrum_noise(make_generator(3, CPU), N, (8, 8), CPU,
+                                    impl)
+        assert noise.shape == (N, 8, 5) and noise.dtype == torch.complex64
+        assert torch.equal(noise.real, zn[:, :8])
+        assert torch.equal(noise.imag, zn[:, 8:])
+
+    chain = _port_chain(problem, _jax_chain(problem, "crf_matern"))
+    sampler = MultiChainSampler(chain, N, device="cpu")
+    _, tr = sampler.run(sampler.init(seeds=5), 81, segment_size=40,
+                        progress=False)
+    _, again = sampler.run(sampler.init(seeds=5), 81, segment_size=27,
+                           progress=False)
+    for k, v in tr.items():
+        np.testing.assert_array_equal(again[k], v, err_msg=k)
+    _, other = sampler.run(sampler.init(seeds=6), 81, progress=False)
+    assert not np.array_equal(other["loss"], tr["loss"])
+    assert np.isfinite(tr["loss"]).all()
+    assert tr["loss"][:, -1].mean() < tr["loss"][:, 0].mean()
+    assert 0.02 < tr["step"][:, 1:].mean() < 0.98
+
+    nugget = _port_chain(problem, _jax_chain(problem, "crf_matern_nugget"))
+    runs = {}
+    for impl in ("auto", "eager"):
+        s = MultiChainSampler(nugget, N, device="cpu", impl=impl)
+        runs[impl] = s.run(s.init(seeds=2), 21, progress=False)[1]
+    for k, v in runs["auto"].items():
+        np.testing.assert_array_equal(runs["eager"][k], v, err_msg=k)
+    assert np.isfinite(runs["auto"]["loss"]).all()

@@ -113,7 +113,7 @@ def test_build_parity(problem, case):
     exp that may differ by an ulp); planes and LUT tables equal."""
     jc, pc = chain_pair(problem, case)
     js, jk = jc.build()
-    ps, pk = pc.build()
+    ps, pk = pc.build("cpu")
     assert_same_sizes(ps, js)
     for a, b in zip(js.mix, ps.mix):
         np.testing.assert_allclose(b, a, rtol=1e-5)
@@ -146,7 +146,7 @@ def test_build_parity(problem, case):
 def test_init_state_parity(problem):
     jc, pc = chain_pair(problem, "transform_detrend")
     _, jk = jc.build()
-    _, pk = pc.build()
+    _, pk = pc.build("cpu")
     jst = jsgs.sgs_init_state(jc._initial_detrended, KEY, jk,
                               z0=jc._initial_z, use_transform=True)
     pst = tsgs.sgs_init_state(pc._initial_detrended, pk, pc._initial_z,
@@ -333,9 +333,13 @@ def test_seam_parity(problem, case):
 
 
 def test_empty_mixture_runs_the_stamp_gather_on_cpu(problem):
-    """A spherical variogram admits no mixture fit: on the CPU the packed
-    solve gathers S_CC from the stamp and runs masked_cg_solve, as the
-    JAX package does off-TPU; the seam still matches it."""
+    """A spherical variogram admits no mixture fit: the packed solve
+    gathers S_CC from the stamp and runs the CG on that Sigma, on the CPU
+    its plain version ``masked_cg_reference`` (the CUDA kernel's sums in
+    its order); the seam still matches the JAX package's vmapped
+    ``masked_cg_solve``."""
+    from mcmc_tpu_torch.ops import cg_kernel
+
     jc, pc = chain_pair(problem, "no_transform")
     jc.set_variogram("Spherical", 8e3, 1.0, 0.0)
     js, jk = jc.build()
@@ -353,10 +357,22 @@ def test_empty_mixture_runs_the_stamp_gather_on_cpu(problem):
         jk, jstates, *(jnp.asarray(d[k]) for k in (
             "cx", "cy", "bsx", "bsy", "noise", "drop_u", "u")),
         jax.random.split(KEY, N))
-    pstate, ptr = tsgs.make_sgs_kernel(ps, "auto")(
-        pk, pstate, *(torch.as_tensor(d[k]) for k in (
-            "cx", "cy", "bsx", "bsy", "noise")), None,
-        torch.as_tensor(d["u"]))
+    calls = []
+    reference = cg_kernel.masked_cg_reference
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return reference(*args)
+
+    cg_kernel.masked_cg_reference = spy
+    try:
+        pstate, ptr = tsgs.make_sgs_kernel(ps, "auto")(
+            pk, pstate, *(torch.as_tensor(d[k]) for k in (
+                "cx", "cy", "bsx", "bsy", "noise")), None,
+            torch.as_tensor(d["u"]))
+    finally:
+        cg_kernel.masked_cg_reference = reference
+    assert calls == [(N, ps.K, ps.K)]
     np.testing.assert_array_equal(ptr["step"].numpy(), np.asarray(jtr["step"]))
     np.testing.assert_allclose(pstate.fields[:, 0].numpy(),
                                np.asarray(jstates.fields)[:, 0], rtol=RTOL,
@@ -415,12 +431,36 @@ def test_sampler_runs_the_sgs_slice(problem):
 
 
 def test_fused_impl_and_cuda_without_mixture_refuse(problem):
+    """impl='fused' on the CPU refuses; a spherical chain's solve on the
+    CPU runs the plain given-Sigma CG on the stamp gather, launching no
+    kernel (before the given-Sigma CG kernel existed, the card refused
+    such a chain)."""
+    from mcmc_tpu_torch.ops.cg_kernel import (masked_cg, masked_cg_reference,
+                                              mix_masked_cg)
+
     _, pc = chain_pair(problem, "no_transform")
     with pytest.raises(ValueError, match="CUDA"):
         MultiChainSampler(pc, 2, device="cpu", impl="fused")
     pc.set_variogram("Spherical", 8e3, 1.0, 0.0)
-    static, _ = pc.build()
-    with pytest.raises(NotImplementedError, match="Queue 2 #5"):
-        tsgs.check_solver(static, "auto", "cuda")
-    tsgs.check_solver(static, "eager", "cuda")
-    tsgs.check_solver(static, "auto", "cpu")
+    static, consts = pc.build("cpu")
+    assert static.Mg + static.Me == 0 and static.mix == ()
+    state = tsgs.sgs_init_state(pc._initial_detrended, consts, None, False,
+                                n_chains=3)
+    d = tsgs.draw(torch.Generator().manual_seed(1), static, consts, 3)
+    geo = tsgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+    windows = tsgs.window_extract_reference(consts.stacked, state.fields,
+                                            geo.sx32, geo.sy32, static.SB)
+    prep = tsgs.prepare(static, consts, windows, geo, d.noise)
+    before = (masked_cg.launches, mix_masked_cg.launches)
+    w = tsgs.solve(static, consts, prep, "auto")
+    assert (masked_cg.launches, mix_masked_cg.launches) == before
+    Sigma = tsgs.stamp_sigma(static, consts, prep)
+    K = static.K
+    assert Sigma.shape == (3, K, K)
+    # entry (a, b) is the stamp at the wrapped offset of neighbours a, b
+    ia, ja = prep.iaf.long(), prep.jaf.long()
+    assert float(Sigma[1, 2, 5]) == float(consts.cov_stamp[
+        (ia[1, 2] - ia[1, 5]) % static.NE, (ja[1, 2] - ja[1, 5]) % static.NE])
+    assert torch.equal(w, masked_cg_reference(Sigma, prep.m_sel, prep.rhs_p,
+                                              prep.eps, static.cg_iters))
+    assert torch.equal(tsgs.solve(static, consts, prep, "eager"), w)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-CRF window kernel, and the SGS window extract and writeback, mixture CG
-and inverse LUT.
+CRF window kernel and Philox noise, and the SGS window extract and
+writeback, the two packed CG solves (mixture system, given Sigma) and the
+inverse LUT.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -16,10 +17,13 @@ from mcmc_tpu_torch import MultiChainSampler
 from mcmc_tpu_torch.models import chain_sgs as sgs
 from mcmc_tpu_torch.models.chain_crf import (draw, init_state, propose,
                                              window_operands)
-from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
+from mcmc_tpu_torch.ops.cg_kernel import (masked_cg, masked_cg_reference,
+                                          mix_masked_cg,
                                           mix_masked_cg_reference)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
 from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
+from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                             batched_normal_reference)
 from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
                                                   window_extract_reference,
                                                   window_writeback,
@@ -115,10 +119,14 @@ def test_fused_impl_refuses_cpu():
 
 # --- the SGS kernels ------------------------------------------------------------
 
-def _sgs_step_operands(device, n=N, seed=4):
+SPHERICAL = ("Spherical", 6e3, 1.0, 0.0, None)
+
+
+def _sgs_step_operands(device, n=N, seed=4, vario=None):
     """A small SGS chain on the card and one step's operands up to the
     packed solve."""
-    chain = small_sgs_chain(small_problem())
+    chain = (small_sgs_chain(small_problem()) if vario is None
+             else small_sgs_chain(small_problem(), vario=vario))
     static, consts = chain.build(device)
     state = sgs.sgs_init_state(chain._initial_detrended, consts,
                                chain._initial_z, True, n)
@@ -262,3 +270,84 @@ def test_sgs_sampler_launches_each_kernel_once_per_step(cuda_device):
     assert tr_f["loss"][:, -1].mean() < tr_f["loss"][:, 0].mean()
     agree = (tr_f["step"] == tr_e["step"]).mean()
     assert agree > 0.99, agree
+
+
+@pytest.mark.cuda
+def test_masked_cg_kernel_matches_plain_version(cuda_device):
+    """The CG on a gathered Sigma (a spherical variogram: no mixture fit)
+    against its plain version at rtol/atol 2e-4, and run to convergence
+    against a float64 solve of the masked subsystem at 2e-3."""
+    static, consts, _, _, _, prep = _sgs_step_operands(cuda_device,
+                                                       vario=SPHERICAL)
+    assert static.Mg + static.Me == 0 and static.cg_iters == 48
+    Sigma = sgs.stamp_sigma(static, consts, prep)
+    args = (Sigma, prep.m_sel, prep.rhs_p, prep.eps)
+    before = masked_cg.launches
+    got = masked_cg(*args, static.cg_iters)
+    assert masked_cg.launches == before + 1
+    torch.testing.assert_close(got, masked_cg_reference(*args,
+                                                        static.cg_iters),
+                               rtol=2e-4, atol=2e-4)
+    assert (got[prep.m_sel == 0] == 0).all()
+    conv = masked_cg(*args, 512)
+    for i in range(0, N, 8):
+        sel = prep.sel[i]
+        A = Sigma[i][sel][:, sel].double() + prep.eps * torch.eye(
+            int(sel.sum()), dtype=torch.float64, device=cuda_device)
+        w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
+        torch.testing.assert_close(conv[i][sel].double(), w64, rtol=2e-3,
+                                   atol=2e-3)
+    with pytest.raises(ValueError, match="K <= 64"):
+        z = torch.zeros((2, 65), device=cuda_device)
+        masked_cg(torch.zeros((2, 65, 65), device=cuda_device), z, z, 1e-3)
+
+
+@pytest.mark.cuda
+def test_spherical_sampler_launches_masked_cg_once_per_step(cuda_device):
+    chain = small_sgs_chain(small_problem(), vario=SPHERICAL)
+    fused = MultiChainSampler(chain, N, device=cuda_device, impl="fused")
+    masked_cg.launches = mix_masked_cg.launches = 0
+    _, tr = fused.run(fused.init(seeds=3), 21, segment_size=10,
+                      progress=False)
+    assert (masked_cg.launches, mix_masked_cg.launches) == (20, 0)
+    assert np.isfinite(tr["loss"]).all()
+
+
+@pytest.mark.cuda
+def test_noise_kernel_matches_plain_version(cuda_device):
+    """Philox normals at the CRF headline's (rows, cols) = (160, 41): the
+    kernel against its plain version within 1e-5, deterministic in the
+    seed, N(0, 1) moments, the tail cap."""
+    seed = torch.tensor([0x123456789ABCDEF], dtype=torch.int64,
+                        device=cuda_device)
+    before = batched_normal.launches
+    z = batched_normal(seed, N, 160, 41)
+    assert batched_normal.launches == before + 1
+    assert z.shape == (N, 160, 41) and z.dtype == torch.float32
+    want = batched_normal_reference(seed, N, 160, 41)
+    assert int(((z - want).abs() > 1e-5).sum()) == 0
+    assert torch.equal(z, batched_normal(seed, N, 160, 41))
+    assert abs(float(z.mean())) < 0.01 and abs(float(z.std()) - 1) < 0.01
+    assert float(z.abs().max()) <= 5.8872
+    assert not torch.equal(z, batched_normal(seed + 1, N, 160, 41))
+    with pytest.raises(ValueError, match="even"):
+        batched_normal(seed, N, 7, 8)
+
+
+@pytest.mark.cuda
+def test_crf_sampler_with_kernel_noise(cuda_device):
+    """The CRF sampler launches the noise kernel once per step; the eager
+    sampler draws the same noise from its plain version."""
+    chain = small_chain(small_problem())
+    fused = MultiChainSampler(chain, N, device=cuda_device)
+    batched_normal.launches = 0
+    _, tr_f = fused.run(fused.init(seeds=3), 41, segment_size=20,
+                        progress=False)
+    assert batched_normal.launches == 40
+    eager = MultiChainSampler(chain, N, device=cuda_device, impl="eager")
+    _, tr_e = eager.run(eager.init(seeds=3), 41, segment_size=20,
+                        progress=False)
+    assert batched_normal.launches == 40
+    assert np.isfinite(tr_f["loss"]).all()
+    assert tr_f["loss"][:, -1].mean() < tr_f["loss"][:, 0].mean()
+    assert (tr_f["step"] == tr_e["step"]).mean() > 0.99
