@@ -16,9 +16,13 @@ the order is the machine's.
 
 Prints the card's name and power limit, one JSON line per process, and a
 summary JSON line last: per checkout, the chain-it/s of every timed run
-of each path.  Needs one CUDA device; imports nothing of JAX.
+of each path, and whether the two checkouts drew the same chains: each
+run's traces (loss, steps, blocks, probes) hashed, the same seeds giving
+equal digests only where every launch of the path computed the same
+bits.  Needs one CUDA device; imports nothing of JAX.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -55,21 +59,32 @@ def child(checkout: str):
     out = {"checkout": checkout}
     for name, make, n_chains, segments, segment in paths:
         sampler = MultiChainSampler(make(p), n_chains, device="cuda")
-        rates = []
+        rates, digests = [], []
         for rep in range(REPEATS):
             states = sampler.init(seeds=rep)
             states, _ = sampler.run_segment(states, WARM_STEPS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sampler.run(states, segments * segment + 1,
-                        segment_size=segment, progress=False)
+            _, traces = sampler.run(states, segments * segment + 1,
+                                    segment_size=segment, progress=False)
             torch.cuda.synchronize()
             rates.append(segments * segment * n_chains
                          / (time.perf_counter() - t0))
+            digests.append(_digest(traces))
         out[name] = rates
+        out[name + "_digest"] = digests
         del sampler
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
+
+
+def _digest(traces):
+    """A short sha256 of a run's traces, key by key."""
+    h = hashlib.sha256()
+    for key in sorted(traces):
+        h.update(key.encode())
+        h.update(np.ascontiguousarray(traces[key]).tobytes())
+    return h.hexdigest()[:16]
 
 
 def main(argv):
@@ -113,6 +128,9 @@ def main(argv):
             q1, med, q3 = np.percentile(rates, [25, 50, 75])
             summary[label][k] = {"rates": rates, "median": med, "q1": q1,
                                  "q3": q3}
+    summary["same_chains"] = {
+        k: len({tuple(r[k + "_digest"]) for r in runs}) == 1
+        for k in ("crf", "sgs")}
     summary["card"] = card
     print(json.dumps(summary), flush=True)
     return 0

@@ -11,11 +11,16 @@ line or more each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every ``ops/csrc/*.cu`` for sm_90a, one process per
    source, all started together, with the ptxas register and
-   shared-memory lines;
+   shared-memory lines and each kernel's SASS instruction count;
 3. CRF kernel vs plain version: the CUDA window kernel against its plain
    PyTorch version on the same state and draws, at the headline geometry
-   (768 chains on a 512 x 512 grid, blocks up to 80), with both times per
-   launch from CUDA events;
+   (768 chains on a 512 x 512 grid, blocks up to 80), then with blocks of
+   50 and 80 forced onto every domain edge and corner (NaN in surf and the
+   data, with and without the data loss and a prefinished proposal); the
+   launch's shared memory, registers and resident CTAs per multiprocessor;
+   both times per launch from CUDA events on the parity steps' own state
+   (a cold L2, as on the main path) and back to back, GB/s and the share
+   of the bound;
 4. irfft2 on the card against the CPU on the same half-spectrum noise;
 5. CRF main path: ChainCRF -> MultiChainSampler(chain, 768) ->
    init(seeds=0) -> run(3 segments x 500 iterations) -> diagnostics,
@@ -37,9 +42,10 @@ line or more each:
    block's reach is untouched and the patched residual equals a full-grid
    recompute; then a profiled window;
 8. noise kernel vs plain version: the Philox normals at the CRF
-   headline's shape (768 chains x 160 x 41) within 1e-5 of the plain
-   version, their moments, tail cap and cross-chain correlation, both
-   times per launch and ``torch.randn`` of the same shape;
+   headline's shape (768 chains x 160 x 41) and at an odd pair count
+   (5 x 18 x 7) bitwise equal to the plain version, their moments, tail
+   cap and cross-chain correlation, both times per launch and
+   ``torch.randn`` of the same shape;
 9. the CRF step on its kernels (noise, cuFFT, window) against the plain
    step (plain Philox, plain window op) from the same state and generator
    state: 20 steps at 768 chains, at most 1e-3 of MH decisions flipping;
@@ -75,6 +81,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -122,6 +129,7 @@ KERNELS = (
 FLIP_RATE_MAX = 1e-3     # MH decisions that differ (f32 sums in another order)
 DELTA_REL_MAX = 1e-4     # delta error relative to the block loss it sums
 FIELD_RTOL, FIELD_ATOL = 5e-5, 1e-3
+EDGE_SIZES = (50, 80)    # block sides forced onto the domain's edges
 HBM_GBS = 3350           # H100 SXM device-memory bandwidth (data sheet)
 F32_TFLOPS = 67          # H100 SXM float32 peak outside the tensor cores
 IRFFT_REL_MAX = 1e-5     # card vs a float64 transform, relative to field rms
@@ -139,6 +147,7 @@ NOISE_ATOL = 1e-5
 NOISE_CAP = 5.8872       # sqrt(-2 ln 2^-25) = sqrt(50 ln 2), the tail cap
 NOISE_CORR_MAX = 0.08    # largest cross-chain |corr| over 64 chains
 NOISE_MOMENT_TOL = 0.01  # |mean| and |std - 1| of all the normals
+NOISE_ODD_SHAPE = (5, 18, 7)  # 63 pairs a chain: odd
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -246,40 +255,84 @@ def phase_build():
         if not any("Used" in line for line in kl.ptxas):
             raise RuntimeError(f"nvcc printed no ptxas resource line for "
                                f"{name}")
+        counts = _sass_counts(kl.path)
+        print(f"[build]   SASS instructions (static, cuobjdump): "
+              + (", ".join(f"{k} {v}" for k, v in counts.items())
+                 or "not measured (no cuobjdump)"), flush=True)
 
 
-def _block_losses(fields_old, geom, consts):
-    """Per chain, the block's old mc loss (the size of the sums a delta is
-    the difference of), in nats."""
+def _sass_counts(lib_path):
+    """{mangled kernel name: instructions in its SASS} of a built library,
+    from the toolkit's cuobjdump; {} where the toolkit has none."""
+    from mcmc_tpu_torch.ops.cuda_build import find_nvcc
+
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def _block_sums(values, mask, geom):
+    """Per chain, the float64 sum of the NaN-safe squares of ``values``
+    (N, H, W) over the chain's block and ``mask`` (H, W)."""
     import torch
 
-    H, W = fields_old.shape[-2:]
-    dev = fields_old.device
+    H, W = values.shape[-2:]
+    dev = values.device
     g = geom.long()
     r = torch.arange(H, device=dev)
     c = torch.arange(W, device=dev)
     rows = (r[None] >= g[:, 0:1]) & (r[None] < g[:, 1:2])
     cols = (c[None] >= g[:, 2:3]) & (c[None] < g[:, 3:4])
-    res = fields_old[:, 1].double()
-    out = torch.zeros(fields_old.shape[0], dtype=torch.float64, device=dev)
-    for i in range(0, fields_old.shape[0], 128):  # bound the temporaries
-        m = (rows[i:i + 128, :, None] & cols[i:i + 128, None, :]
-             & consts.mc_mask[None])
-        sq = torch.nan_to_num(res[i:i + 128] ** 2, nan=0.0)
+    out = torch.zeros(values.shape[0], dtype=torch.float64, device=dev)
+    for i in range(0, values.shape[0], 128):  # bound the temporaries
+        m = rows[i:i + 128, :, None] & cols[i:i + 128, None, :] & mask[None]
+        sq = torch.nan_to_num(values[i:i + 128].double() ** 2, nan=0.0)
         out[i:i + 128] = torch.where(m, sq, 0.0).sum(dim=(1, 2))
-    return out / (2.0 * consts.sigma_mc ** 2)
+    return out
 
 
-def _window_bytes(geom, acc, B, n_const=6):
-    """Bytes one launch of the window op moves: per chain, its window of
-    the const planes and of bed and residual over the block plus its
-    one-cell ring, the raw (B, B) field and the (h, w) edge mask, and on
-    accept the three state planes rewritten over the block."""
-    g = geom.double()
-    h, w = g[:, 1] - g[:, 0], g[:, 3] - g[:, 2]
-    reads = (n_const + 2) * (h + 2) * (w + 2) + B * B + h * w
-    writes = 3 * h * w * (acc > 0).double()
-    return 4.0 * float((reads + writes).sum())
+def _block_losses(fields_old, geom, consts):
+    """Per chain, the block's old mc loss (the size of the sums a delta is
+    the difference of), in nats."""
+    return (_block_sums(fields_old[:, 1], consts.mc_mask, geom)
+            / (2.0 * consts.sigma_mc ** 2))
+
+
+def _window_bytes(geom, acc, H, W, n_const=6):
+    """Bytes one launch of the window op must move, each input byte once:
+    the const planes over the distinct cells the launch covers (surf,
+    velx and vely over the windows, the block and its one-cell ring
+    clipped to the grid; the rest over the blocks); per chain its bed
+    over the window, its old residual over the block and its raw (h, w)
+    proposal, and on accept the resample count read and the three state
+    planes written over the block; each edge mask the launch uses, once,
+    over its (h, w); geom, fvals and the three outputs."""
+    g = geom.cpu().numpy().astype(np.int64)
+    bx0, bx1, by0, by1 = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+    r0, r1 = np.maximum(bx0 - 1, 0), np.minimum(bx1 + 1, H)
+    c0, c1 = np.maximum(by0 - 1, 0), np.minimum(by1 + 1, W)
+    block = np.maximum(bx1 - bx0, 0) * np.maximum(by1 - by0, 0)
+    window = np.where(block > 0, (r1 - r0) * (c1 - c0), 0)
+    hw = g[:, 6] * g[:, 7]
+    const = (3 * _covered_cells(r0, r1, c0, c1, H, W)
+             + (n_const - 3) * _covered_cells(bx0, bx1, by0, by1, H, W))
+    masks = dict(zip(g[:, 8].tolist(), hw.tolist()))
+    accepted = acc.cpu().numpy() > 0
+    per_chain = window + block + hw + 4 * block * accepted
+    return 4.0 * float(const + per_chain.sum() + sum(masks.values())
+                       + g.shape[0] * (9 + 6 + 3))
 
 
 def _bound(bytes_moved=0.0, flops=0.0):
@@ -300,12 +353,13 @@ def _cg_work(N, K, n_iters, build_per_entry, bytes_in):
     return N * (bytes_in + 4 * K), flops
 
 
-def _covered_cells(sx, sy, SB, H, W):
-    """Distinct grid cells that the (SB, SB) windows at (sx, sy) cover:
-    the const planes' cells a window extract must read once."""
+def _covered_cells(r0, r1, c0, c1, H, W):
+    """Distinct cells of an (H, W) grid that the rectangles [r0, r1) x
+    [c0, c1) cover: the cells of a shared plane a launch must read once."""
     cover = np.zeros((H, W), bool)
-    for a, b in zip(sx.tolist(), sy.tolist()):
-        cover[a:a + SB, b:b + SB] = True
+    for a, b, c, d in zip(r0.tolist(), r1.tolist(), c0.tolist(),
+                          c1.tolist()):
+        cover[a:b, c:d] = True
     return int(cover.sum())
 
 
@@ -354,7 +408,8 @@ def phase_kernel_vs_plain(chain, card):
     from mcmc_tpu_torch.models.chain_crf import (draw, init_state, propose,
                                                  window_operands)
     from mcmc_tpu_torch.ops.window_kernel import (
-        fused_window_update, fused_window_update_reference)
+        fused_window_update, fused_window_update_reference,
+        window_kernel_info)
     from mcmc_tpu_torch.utils.rng import make_generator
 
     dev = torch.device(DEVICE)
@@ -364,7 +419,8 @@ def phase_kernel_vs_plain(chain, card):
     n_dec = n_flip = 0
     delta_rel = field_err = 0.0
     field_viol = 0
-    ops = []  # each step's operands, replayed below for the timing
+    ops = []  # each step's operands, replayed below
+    events = []  # each step's (kernel, plain) launches on its own state
     for _ in range(PARITY_STEPS):
         d = draw(gen, static, consts, N_CHAINS)
         f = propose(static, consts, d).contiguous()
@@ -375,10 +431,18 @@ def phase_kernel_vs_plain(chain, card):
         old = state.fields.clone()
         plain = old.clone()
         args = (consts.rf.edge_masks, geom, fvals)
+        # the two 2.4 GB copies above are still running, so the host
+        # queues the launches between the events ahead of the device, and
+        # they leave the L2 cold, as the main path's step does
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
         acc_k, dk, ddk = fused_window_update(consts.stacked, state.fields, f,
                                              *args)
+        ev[1].record()
         acc_p, dp, ddp = fused_window_update_reference(consts.stacked, plain,
                                                        f, *args)
+        ev[2].record()
+        events.append(ev)
         same = acc_k == acc_p
         n_dec += N_CHAINS
         n_flip += int((~same).sum())
@@ -393,7 +457,7 @@ def phase_kernel_vs_plain(chain, card):
         # the chains advance on the kernel's result
         state.loss_mc = state.loss_mc + dk
         state.loss_data = state.loss_data + ddk
-        ops.append((f, geom, fvals, _window_bytes(geom, acc_k, f.shape[-1])))
+        ops.append((f, geom, fvals, acc_k))
     flip_rate = n_flip / n_dec
     print(f"[parity] {PARITY_STEPS} steps x {N_CHAINS} chains: accept flips "
           f"{n_flip}/{n_dec} = {flip_rate:.3e} (bound {FLIP_RATE_MAX:g}) | "
@@ -405,24 +469,123 @@ def phase_kernel_vs_plain(chain, card):
         raise RuntimeError("CUDA window kernel disagrees with its plain "
                            "version")
 
-    # time both over the recorded steps' operands in turn (fresh windows
-    # each launch, as on the main path), plain / kernel / kernel / plain
+    _window_edges(static, consts, state, gen, card)
+
+    # the times on the steps' own state, with their own accept decisions
+    # (the plain version's partly the host's); the first step, which
+    # loads the module, left out
+    ms = float(np.mean([e[0].elapsed_time(e[1]) for e in events[1:]]))
+    plain_ms = float(np.mean([e[1].elapsed_time(e[2]) for e in events[1:]]))
+    n_acc = int(sum(float(op[3].sum()) for op in ops))
+    # and back to back over the recorded operands, plain / kernel / kernel
+    # / plain, into a copy of the last state: its accept decisions differ
     scratch = state.fields.clone()
     recorded = [(consts.stacked, scratch, f, consts.rf.edge_masks, geom,
                  fvals) for f, geom, fvals, _ in ops]
-    plain_ms, ms = _pair_times(fused_window_update_reference,
-                               fused_window_update, recorded)
-    moved = float(np.mean([op[3] for op in ops]))
+    n_acc_replay = int(sum(float(fused_window_update(*op)[0].sum())
+                           for op in recorded))
+    replay_plain_ms, replay_ms = _pair_times(fused_window_update_reference,
+                                             fused_window_update, recorded)
+    moved = float(np.mean([_window_bytes(geom, acc, GRID, GRID)
+                           for _, geom, _, acc in ops]))
     gbs = moved / (ms * 1e-3) / 1e9
     bound_ms, bound_by = _bound(moved)
+    B = static.rf.B
+    info = window_kernel_info(B)
+    print(f"[parity] launch at B={B}: {info['threads']} threads, "
+          f"{info['dynamic_shared_bytes']} B dynamic + "
+          f"{info['static_shared_bytes']} B static shared memory, "
+          f"{info['registers']} registers and {info['local_bytes']} B local "
+          f"memory a thread, {info['resident_ctas_per_sm']} resident CTAs a "
+          f"multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor)",
+          flush=True)
     print(f"[parity] time per launch at {N_CHAINS} chains x {GRID}^2, "
-          f"B={static.rf.B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"({card}; CUDA events, {len(ops)} launches x 2 each) | kernel "
-          f"{gbs:.0f} GB/s = {gbs / HBM_GBS:.3f} of {HBM_GBS} GB/s | bound "
-          f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB)", flush=True)
+          f"B={B}, on the parity steps' own state ({n_acc} of {n_dec} "
+          f"chains accepting), each launch after the state copies (a cold "
+          f"L2, as on the main path): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms ({card}; CUDA events around each, "
+          f"{len(events) - 1} launches) | kernel {gbs:.0f} GB/s = "
+          f"{gbs / HBM_GBS:.3f} of {HBM_GBS} GB/s | bound {bound_ms:.4f} ms "
+          f"({moved / 1e6:.1f} MB, each input byte once) = "
+          f"{bound_ms / ms:.3f} of the kernel's time", flush=True)
+    print(f"[parity] back to back over the same operands into a copy of "
+          f"the last state (the shared planes warm in L2; {n_acc_replay} of {n_dec} chains "
+          f"accepting): kernel {replay_ms:.4f} ms, plain "
+          f"{replay_plain_ms:.4f} ms ({len(ops)} launches x 2 each)",
+          flush=True)
     return dict(max_abs_err=field_err, ms=ms, plain_ms=plain_ms,
                 flip_rate=flip_rate, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def _window_edges(static, consts, state, gen, card):
+    """The window kernel against its plain version with blocks forced onto
+    the domain's edges and corners, where the window is clipped, the
+    stencil one-sided and the offsets negative (``mcmc_tpu_torch.testing.
+    edge_window_operands``: every cell updated and in the mc mask, radar
+    data at 5 % of the cells, NaN in surf and in the data at a few edge
+    cells; the first chain's state); with and without the data loss and
+    a prefinished proposal.  The same bounds as the headline parity."""
+    import torch
+
+    from mcmc_tpu_torch.models.chain_crf import draw, propose
+    from mcmc_tpu_torch.ops.window_kernel import (
+        fused_window_update, fused_window_update_reference)
+    from mcmc_tpu_torch.testing import edge_window_operands
+
+    stacked, old, geom, n_cases = edge_window_operands(
+        consts, state.fields, EDGE_SIZES, N_CHAINS)
+    loss_prev = (state.loss_mc + state.loss_data)[:1].expand(N_CHAINS)
+    sigma_data = 20.0
+    mc_scale = (_block_sums(old[:, 1], stacked[4] >= 2.0, geom)
+                / (2.0 * consts.sigma_mc ** 2))
+    data_scale = (_block_sums(old[:, 0] - stacked[6], stacked[7] > 0, geom)
+                  / (2.0 * sigma_data ** 2))
+    n_dec = n_flip = field_viol = nan_diff = n_acc = 0
+    delta_rel = 0.0
+    for use_data_loss in (False, True):
+        for prefinished in (False, True):
+            d = draw(gen, static, consts, N_CHAINS)
+            f = propose(static, consts, d).contiguous()
+            fvals = torch.stack([
+                d.u, loss_prev, torch.full_like(loss_prev, consts.sigma_mc),
+                torch.full_like(loss_prev, consts.resolution),
+                torch.full_like(loss_prev, sigma_data), d.scale], dim=1)
+            args = (f, consts.rf.edge_masks, geom, fvals)
+            kw = dict(use_data_loss=use_data_loss, prefinished=prefinished)
+            fk, fp = old.clone(), old.clone()
+            acc_k, dk, ddk = fused_window_update(stacked, fk, *args, **kw)
+            acc_p, dp, ddp = fused_window_update_reference(stacked, fp, *args,
+                                                           **kw)
+            same = acc_k == acc_p
+            n_dec += N_CHAINS
+            n_flip += int((~same).sum())
+            n_acc += int(acc_p.sum())
+            for got, want, scale in ((dk, dp, mc_scale),
+                                     (ddk, ddp, data_scale)):
+                err = (got.double() - want.double()).abs() / (
+                    scale + want.double().abs() + 1e-12)
+                delta_rel = max(delta_rel, float(err[same].max()))
+            a, b = fk[same], fp[same]
+            nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+            nan_diff += int((nan_a != nan_b).sum())
+            ok = ~(nan_a | nan_b)
+            field_viol += int(((a - b).abs()[ok] > FIELD_ATOL
+                               + FIELD_RTOL * b[ok].abs()).sum())
+            del fk, fp, a, b
+    flip_rate = n_flip / n_dec
+    print(f"[parity-edge] blocks on every domain edge and corner ({n_cases} "
+          f"geometries over {N_CHAINS} chains, h, w in {EDGE_SIZES}; NaN in "
+          f"surf and data), with and without the data loss and prefinished: "
+          f"{n_acc}/{n_dec} accepted, flips {n_flip} = {flip_rate:.3e} (bound "
+          f"{FLIP_RATE_MAX:g}) | max delta err / block loss {delta_rel:.3e} "
+          f"(bound {DELTA_REL_MAX:g}) | {field_viol} cells beyond rtol "
+          f"{FIELD_RTOL:g} / atol {FIELD_ATOL:g}, {nan_diff} NaN cells "
+          f"differ ({card})", flush=True)
+    if (flip_rate > FLIP_RATE_MAX or delta_rel > DELTA_REL_MAX or field_viol
+            or nan_diff or not 0 < n_acc < n_dec):
+        raise RuntimeError("CUDA window kernel disagrees with its plain "
+                           "version at the domain's edges")
 
 
 def phase_irfft2(chain):
@@ -683,7 +846,8 @@ def phase_sgs_kernels_vs_plain(chain, card):
         # distinct const cells read, the (N, 14, SB, SB) windows written;
         # the written chains' windows read and written back; the LUT's
         # values in and out and its table
-        covered = _covered_cells(sx.cpu(), sy.cpu(), SB, H, W)
+        covered = _covered_cells(sx.cpu(), sx.cpu() + SB, sy.cpu(),
+                                 sy.cpu() + SB, H, W)
         work["extract"].append((4.0 * (N * 4 * SB * SB + 10 * covered
                                        + N * 14 * SB * SB) + 8 * N, 0.0))
         n_write = int(sc.write.sum())
@@ -844,12 +1008,18 @@ def phase_noise_vs_plain(chain, card):
     gen = make_generator(21, dev)
     seeds = [draw_seed(gen, dev) for _ in range(NOISE_SEEDS)]
     err = 0.0
-    n_far = 0
+    n_far = n_diff = 0
     for seed in seeds:
         z = batched_normal(seed, *shape)
-        diff = (z - batched_normal_reference(seed, *shape)).abs()
+        want = batched_normal_reference(seed, *shape)
+        diff = (z - want).abs()
         err = max(err, float(diff.max()))
         n_far += int((diff > NOISE_ATOL).sum())
+        n_diff += int((z != want).sum())
+    # an odd pair count takes the kernel's scalar stores
+    odd_diff = int((batched_normal(seeds[0], *NOISE_ODD_SHAPE)
+                    != batched_normal_reference(seeds[0], *NOISE_ODD_SHAPE)
+                    ).sum())
     z = batched_normal(seeds[0], *shape)
     same = torch.equal(z, batched_normal(seeds[0], *shape))
     mean, std = float(z.mean()), float(z.std())
@@ -867,16 +1037,21 @@ def phase_noise_vs_plain(chain, card):
         [()] * NOISE_SEEDS)
     bound_ms, bound_by = _bound(4.0 * np.prod(shape) + 8)
     print(f"[noise] {NOISE_SEEDS} launches of {shape}: max |kernel - plain| "
-          f"{err:.3e}, {n_far} values beyond {NOISE_ATOL:g} (bound 0) | "
+          f"{err:.3e}, {n_far} values beyond {NOISE_ATOL:g} (bound 0), "
+          f"{n_diff} of {NOISE_SEEDS * int(np.prod(shape))} not bitwise equal "
+          f"(bound 0) | odd shape {NOISE_ODD_SHAPE}: {odd_diff} not bitwise "
+          f"equal (bound 0) | "
           f"deterministic {same} | mean {mean:.3e}, std {std:.5f}, max |z| "
           f"{zmax:.4f} (cap {NOISE_CAP}) | largest cross-chain |corr| over "
           f"{n_corr} chains {corr_max:.4f} (bound {NOISE_CORR_MAX}) ({card})",
           flush=True)
     print(f"[noise] per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.randn of the same shape {library_ms:.4f} ms | bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({card}; CUDA events)",
-          flush=True)
-    if (n_far or not same or abs(mean) > NOISE_MOMENT_TOL
+          f"torch.randn of the same shape {library_ms:.4f} ms (kernel / "
+          f"torch.randn {ms / library_ms:.3f}) | bound {bound_ms:.4f} ms by "
+          f"{bound_by} = {bound_ms / ms:.3f} of the kernel's time ({card}; "
+          f"CUDA events)", flush=True)
+    if (n_far or n_diff or odd_diff or not same
+            or abs(mean) > NOISE_MOMENT_TOL
             or abs(std - 1.0) > NOISE_MOMENT_TOL or zmax > NOISE_CAP
             or corr_max >= NOISE_CORR_MAX):
         raise RuntimeError("the noise kernel disagrees with its plain "

@@ -22,6 +22,7 @@ from ..ops.logistic import make_edge_mask
 from ..ops.spectral import (block_mask, sample_field_params, spectral_field,
                             standardize_masked)
 from ..utils.config import BlockMenuConfig, RandFieldConfig, WeightConfig
+from ..utils.rng import resolve_device
 
 
 def make_block_menu(cfg: BlockMenuConfig) -> np.ndarray:
@@ -71,10 +72,12 @@ def _require_spectral(spectral: bool):
 
 
 def build_randfield(rf_cfg: RandFieldConfig, blocks: BlockMenuConfig,
-                    weights: WeightConfig, device="cpu"
+                    weights: WeightConfig, device=None
                     ) -> Tuple[RandFieldStatic, RandFieldArrays]:
-    """Host-side setup: block menu, stacked edge masks, canvas size."""
+    """Host-side setup: block menu, stacked edge masks, canvas size, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     _require_spectral(rf_cfg.spectral)
+    device = resolve_device(device)
     pairs = make_block_menu(blocks)
     n_sizes = pairs.shape[1]
     B = int(max(pairs.max(), 2))

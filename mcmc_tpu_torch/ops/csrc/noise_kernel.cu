@@ -19,22 +19,33 @@
 // One Philox call gives four words, so two (u1, u2) pairs, so four
 // normals: pair 2c takes words (0, 1), pair 2c + 1 words (2, 3).
 //
-// What bounds it on an H100: bytes.  The launch writes N * R * C float32
-// (768 x 160 x 41 x 4 B = 20.2 MB, ~6 us at 3.35 TB/s) and reads one
-// seed; the Philox rounds are integer multiply-highs and the transform a
-// log, a sqrt and a sin/cos per pair, well under the card's rates.
-// Design: one thread per Philox call, 256 threads a block, a flat grid
-// over (chain, call); each thread writes its four normals as scalar
-// stores at 2c, 2c + 1 of each half, so a warp's stores cover contiguous
-// words (R * C is no multiple of 4 at C = 41, so no vector stores).  The
-// seed is read from device memory: the host never waits for it.
+// What bounds it on an H100: instruction issue.  The launch writes
+// N * R * C float32 (768 x 160 x 41 x 4 B = 20.2 MB, ~6 us at 3.35 TB/s)
+// and reads one seed, but each Philox call costs ~80 integer instructions
+// and each of its two Box-Muller pairs an accurate log, sqrt and sin/cos
+// (~70 more), about as long on the issue slots as the bytes take.  Design,
+// to spend the issue slots on that arithmetic alone:
+//   - a 2D grid, the chain in blockIdx.x (up to 2^31 - 1 chains) and the
+//     chain's blocks of calls along blockIdx.y, strided by gridDim.y
+//     where a chain needs more than 65,535 of them: no division to find
+//     either;
+//   - kCalls Philox calls per thread, kThreads apart, so the seed load,
+//     the key schedule (ten round keys, kept in registers) and the
+//     pointer arithmetic are shared by them, and each warp's stores of
+//     one call still cover contiguous words;
+//   - sincosf: one range reduction for the sin and the cos of t; CUDA's
+//     sincosf returns the same bits as sinf and cosf;
+//   - where pairs = R/2 * C is even (3,280 at the headline), float2
+//     stores of the two adjacent pairs of a call into each half; an odd
+//     count takes scalar stores in the same kernel (a uniform branch).
+// The seed is read from device memory: the host never waits for it.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libnoise_kernel.so noise_kernel.cu
 // -fmad=false keeps u1's multiply and add two roundings, as the plain
-// version computes them; logf, sqrtf, sinf and cosf are the accurate
-// (not fast-math) forms, as PyTorch's CUDA log, sqrt, sin and cos.
+// version computes them; logf, sqrtf and sincosf are the accurate (not
+// fast-math) forms, as PyTorch's CUDA log, sqrt, sin and cos.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,23 +53,25 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;  // threads a block
+constexpr int kCalls = 2;     // Philox calls a thread
+constexpr int kRounds = 10;
 constexpr uint32_t kM0 = 0xD2511F53u;  // Philox4x32 multipliers
 constexpr uint32_t kM1 = 0xCD9E8D57u;
 constexpr uint32_t kW0 = 0x9E3779B9u;  // Weyl key increments
 constexpr uint32_t kW1 = 0xBB67AE85u;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
+struct Keys {
+  uint32_t k0[kRounds], k1[kRounds];
+};
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const Keys& k) {
 #pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    if (round > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
+  for (int round = 0; round < kRounds; ++round) {
     const uint32_t lo0 = kM0 * c.x, hi0 = __umulhi(kM0, c.x);
     const uint32_t lo1 = kM1 * c.z, hi1 = __umulhi(kM1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    c = make_uint4(hi1 ^ c.y ^ k.k0[round], lo1, hi0 ^ c.w ^ k.k1[round],
+                   lo0);
   }
   return c;
 }
@@ -71,31 +84,55 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
   const float u2 = (float)(b2 & 0xFFFFFFu) * 5.9604644775390625e-08f;
   const float r = sqrtf(-2.0f * logf(u1));
   const float t = 6.28318530717958647692f * u2;
-  zc = r * cosf(t);
-  zs = r * sinf(t);
+  float s, c;
+  sincosf(t, &s, &c);
+  zc = r * c;
+  zs = r * s;
 }
 
 __global__ void __launch_bounds__(kThreads)
 noise_kernel(const long long* __restrict__ seed, float* __restrict__ out,
-             int n_chains, int pairs, int calls) {
-  const long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (g >= (long long)n_chains * calls) return;
-  const int chain = (int)(g / calls);
-  const int call = (int)(g - (long long)chain * calls);
+             int pairs, int calls) {
+  const int chain = blockIdx.x;
   const unsigned long long s = (unsigned long long)seed[0];
-  const uint4 w = philox4x32_10(make_uint4((uint32_t)call, (uint32_t)chain,
-                                           0u, 0u),
-                                (uint32_t)s, (uint32_t)(s >> 32));
-  float* o = out + (size_t)chain * 2 * pairs;
-  const int q = 2 * call;
-  float zc, zs;
-  box_muller(w.x, w.y, zc, zs);
-  o[q] = zc;
-  o[pairs + q] = zs;
-  if (q + 1 < pairs) {
-    box_muller(w.z, w.w, zc, zs);
-    o[q + 1] = zc;
-    o[pairs + q + 1] = zs;
+  Keys k;
+  k.k0[0] = (uint32_t)s;
+  k.k1[0] = (uint32_t)(s >> 32);
+#pragma unroll
+  for (int round = 1; round < kRounds; ++round) {
+    k.k0[round] = k.k0[round - 1] + kW0;
+    k.k1[round] = k.k1[round - 1] + kW1;
+  }
+  float* cos_half = out + (size_t)chain * 2 * pairs;
+  float* sin_half = cos_half + pairs;
+  const bool paired = (pairs & 1) == 0;  // uniform over the launch
+  // calls < 2^29 (the wrapper takes fewer than 2^31 normals), so the
+  // stride never overflows
+  for (int first = blockIdx.y * (kThreads * kCalls) + threadIdx.x;
+       first < calls; first += gridDim.y * (kThreads * kCalls)) {
+#pragma unroll
+    for (int j = 0; j < kCalls; ++j) {
+      const int call = first + j * kThreads;
+      if (call >= calls) break;
+      const uint4 w = philox4x32_10(
+          make_uint4((uint32_t)call, (uint32_t)chain, 0u, 0u), k);
+      const int q = 2 * call;
+      float c0, s0, c1, s1;
+      box_muller(w.x, w.y, c0, s0);
+      if (paired) {  // q + 1 < pairs, and both halves 8-byte aligned
+        box_muller(w.z, w.w, c1, s1);
+        *reinterpret_cast<float2*>(cos_half + q) = make_float2(c0, c1);
+        *reinterpret_cast<float2*>(sin_half + q) = make_float2(s0, s1);
+      } else {
+        cos_half[q] = c0;
+        sin_half[q] = s0;
+        if (q + 1 < pairs) {
+          box_muller(w.z, w.w, c1, s1);
+          cos_half[q + 1] = c1;
+          sin_half[q + 1] = s1;
+        }
+      }
+    }
   }
 }
 
@@ -108,10 +145,10 @@ extern "C" int mcmc_batched_normal(const void* seed, void* out, int n_chains,
   if (rows % 2) return (int)cudaErrorInvalidValue;
   const int pairs = rows / 2 * cols;
   const int calls = (pairs + 1) / 2;
-  const long long threads = (long long)n_chains * calls;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  noise_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)seed, (float*)out, n_chains, pairs, calls);
+  const int blocks = (calls + kThreads * kCalls - 1) / (kThreads * kCalls);
+  const dim3 grid(n_chains, blocks < 65535 ? blocks : 65535);
+  noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)seed, (float*)out, pairs, calls);
   return (int)cudaGetLastError();
 }
 

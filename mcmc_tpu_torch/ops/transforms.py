@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.rng import resolve_device
+
 _BOUNDS_THRESHOLD = 1e-7
 
 
@@ -116,11 +118,13 @@ class NormalScoreLUT:
 
     @classmethod
     def from_transform(cls, nst: NormalScoreTransform, n: int = 4096,
-                       device="cpu"):
-        """Uniform-grid LUTs of ``nst`` with ``n`` knots.  The inverse
-        covers z in [-6.5, 6.5]: conditional draws can pass the forward
+                       device=None):
+        """Uniform-grid LUTs of ``nst`` with ``n`` knots, on ``device``
+        (the card unless the caller asks for the CPU).  The inverse covers
+        z in [-6.5, 6.5]: conditional draws can pass the forward
         transform's ±5.2 clip, and past the knots the inverse saturates at
         the data range like sklearn's."""
+        device = resolve_device(device)
         q = np.asarray(nst.quantiles, np.float64)
         xg = np.linspace(q[0], q[-1], n)
         zg = nst.transform_np(xg)

@@ -18,6 +18,10 @@ Three pieces, as for every kernel of the port:
 - ``fused_window_update``: the dispatcher.  A CPU tensor goes to the plain
   version; a CUDA tensor launches the kernel or raises.  Nothing falls
   back.  ``fused_window_update.launches`` counts kernel launches.
+  ``window_launch_config`` is the launch's one configuration (threads,
+  the tile's shared bytes), which the dispatcher hands to the kernel; it
+  refuses a canvas whose tile does not fit.  ``window_kernel_info`` reads
+  the built kernel's registers and resident CTAs off the card.
 
 Both update ``fields`` IN PLACE (the Pallas kernel aliases it input to
 output) and return ``(accept, delta, delta_data)``, each ``(N,)`` float32
@@ -39,6 +43,29 @@ import ctypes
 import torch
 
 from .spectral import block_mask, standardize_masked
+
+# the shared memory one block of an H100 can opt in to (227 KB)
+MAX_SHARED_BYTES = 232_448
+
+
+def window_launch_config(B: int):
+    """``(threads, dynamic shared bytes)`` of the kernel's launch for a
+    (B, B) proposal canvas: one CTA of 256 threads per chain staging a
+    (B + 3, B + 2) float32 tile (csrc/window_kernel.cu, which refuses any
+    other thread count).  A canvas whose tile does not fit one block's
+    shared memory is refused here, before any launch; the runtime refuses
+    a tile that leaves no room for the kernel's static scratch."""
+    if B < 1:
+        raise ValueError(f"the proposal canvas must be at least 1 wide, "
+                         f"got B = {B}")
+    smem = 4 * (B + 3) * (B + 2)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"B = {B}: the window kernel stages a ({B + 3}, {B + 2}) float32 "
+            f"tile, {smem} bytes of shared memory, above the "
+            f"{MAX_SHARED_BYTES} a block can have; use smaller blocks")
+    return 256, smem
+
 
 def window_geometry(cx, cy, h, w, size_idx, H: int, W: int):
     """(N, 9) int32 block geometry with floor semantics, as
@@ -187,12 +214,37 @@ def _cuda_library():
     kl = load_library("window_kernel")
     fn = kl.lib.mcmc_fused_window_update
     if fn.argtypes is None:  # without argtypes ctypes would cut pointers
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        kl.lib.mcmc_fused_window_info.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        kl.lib.mcmc_fused_window_info.restype = ctypes.c_int
         kl.lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
         kl.lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return kl.lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"window kernel {what} failed: {msg} ({err})")
+
+
+def window_kernel_info(B: int) -> dict:
+    """The built kernel's launch at canvas size ``B`` as the CUDA runtime
+    reports it on the current card: threads, dynamic and static shared
+    bytes, registers and local (spill) bytes a thread, and resident CTAs
+    a multiprocessor."""
+    threads, smem = window_launch_config(B)
+    lib = _cuda_library()
+    out = (ctypes.c_int * 4)()
+    _raise_on(lib, lib.mcmc_fused_window_info(threads, smem,
+                                              ctypes.addressof(out)),
+              "query")
+    return dict(threads=threads, dynamic_shared_bytes=smem,
+                **dict(zip(("static_shared_bytes", "registers", "local_bytes",
+                            "resident_ctas_per_sm"), list(out))))
 
 
 def fused_window_update(consts, fields, fraw, edge_masks, geom, fvals, *,
@@ -207,9 +259,10 @@ def fused_window_update(consts, fields, fraw, edge_masks, geom, fvals, *,
         raise ValueError(f"no window kernel for device {fields.device}")
     _check_cuda_operands(consts, fields, fraw, edge_masks, geom, fvals,
                          use_data_loss)
-    lib = _cuda_library()
     N, _, H, W = fields.shape
     B = fraw.shape[-1]
+    threads, smem = window_launch_config(B)
+    lib = _cuda_library()
     out = torch.empty((3, N), dtype=torch.float32, device=fields.device)
     stream = torch.cuda.current_stream(fields.device).cuda_stream
     with torch.cuda.device(fields.device):
@@ -218,10 +271,8 @@ def fused_window_update(consts, fields, fraw, edge_masks, geom, fvals, *,
             edge_masks.data_ptr(), geom.data_ptr(), fvals.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             N, H, W, B, int(bool(use_data_loss)), int(bool(prefinished)),
-            stream)
-    if err != 0:
-        msg = lib.mcmc_cuda_error_string(err).decode()
-        raise RuntimeError(f"window kernel launch failed: {msg} ({err})")
+            threads, smem, stream)
+    _raise_on(lib, err, "launch")
     fused_window_update.launches += 1
     return out[0], out[1], out[2]
 

@@ -29,7 +29,9 @@ from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
                                                   window_writeback,
                                                   window_writeback_reference)
 from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
-                                              fused_window_update_reference)
+                                              fused_window_update_reference,
+                                              window_kernel_info)
+from mcmc_tpu_torch.testing import edge_window_operands
 from mcmc_tpu_torch.utils.rng import make_generator
 from tests.torch_helpers import (assert_delta_close, block_losses,
                                  small_chain, small_problem, small_sgs_chain)
@@ -87,6 +89,61 @@ def test_kernel_matches_plain_version(cuda_device, data_loss, nugget):
         state.loss_data = state.loss_data + ddk
         n_acc += int(acc_k.sum())
     assert 0 < n_acc < 6 * N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data_loss,prefinished", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_kernel_matches_plain_version_at_the_edges(cuda_device, data_loss,
+                                                   prefinished):
+    """Blocks of both menu extremes centred on every domain edge and
+    corner (clipped windows, one-sided stencils, negative offsets), every
+    cell updated and in the mc mask, NaN in surf and the data at a few
+    edge cells: the kernel against its plain version."""
+    chain = small_chain(small_problem())
+    static, consts = chain.build(cuda_device)
+    state = init_state(chain.initial_bed, consts, 1)
+    stacked, fields, geom, _ = edge_window_operands(consts, state.fields,
+                                                    (12, 20))
+    n = fields.shape[0]
+    rng = np.random.default_rng(8)
+    B = static.rf.B
+    f = torch.as_tensor(rng.normal(0.0, 30.0 if prefinished else 1.0,
+                                   (n, B, B)).astype(np.float32),
+                        device=cuda_device)
+    loss_prev = float(state.loss_mc[0])
+    fvals = torch.as_tensor(np.stack([
+        rng.uniform(0, 1, n), np.full(n, loss_prev),
+        np.full(n, consts.sigma_mc), np.full(n, consts.resolution),
+        np.full(n, consts.sigma_data), rng.uniform(20.0, 60.0, n) / 3.0],
+        axis=1).astype(np.float32), device=cuda_device)
+    kw = dict(use_data_loss=data_loss, prefinished=prefinished)
+    got, want = fields.clone(), fields.clone()
+    acc_k, dk, ddk = fused_window_update(stacked, got, f, consts.rf.edge_masks,
+                                         geom, fvals, **kw)
+    acc_p, dp, ddp = fused_window_update_reference(
+        stacked, want, f, consts.rf.edge_masks, geom, fvals, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(acc_k, acc_p)
+    assert 0 < int(acc_k.sum()) < n
+    mc_l, data_l = block_losses(fields.cpu().numpy(), stacked.cpu().numpy(),
+                                geom.cpu().numpy(), consts)
+    assert_delta_close(dk.cpu(), dp.cpu().double().numpy(), mc_l)
+    assert_delta_close(ddk.cpu(), ddp.cpu().double().numpy(), data_l)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_window_kernel_launch_fills_the_card(cuda_device):
+    """At the headline's B = 80 the launch helper's tile lets six CTAs
+    share a multiprocessor (768 chains over 132 in one wave) with no
+    spills; a tile too large for the card is refused before a launch."""
+    info = window_kernel_info(80)
+    assert info["threads"] == 256 and info["dynamic_shared_bytes"] == 27_224
+    assert info["resident_ctas_per_sm"] >= 6 and info["local_bytes"] == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        window_kernel_info(239)
 
 
 @pytest.mark.cuda
@@ -332,6 +389,24 @@ def test_noise_kernel_matches_plain_version(cuda_device):
     assert not torch.equal(z, batched_normal(seed + 1, N, 160, 41))
     with pytest.raises(ValueError, match="even"):
         batched_normal(seed, N, 7, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 160, 41), (5, 18, 7), (3, 2, 300),
+                                   (2, 64, 64), (70_000, 2, 2),
+                                   (1, 2, 33_553_926)],
+                         ids=["one-chain", "odd-pairs", "ragged-block",
+                              "whole-blocks", "many-chains", "long-chain"])
+def test_noise_kernel_bitwise(cuda_device, shape):
+    """Bitwise against the plain version: one chain; an odd pair count (the
+    scalar stores); call counts that leave the last block ragged (150) or
+    fill it (1024); more chains than a grid's 65,535 rows; a chain whose
+    131,070 blocks of calls are more than a grid has rows, so blocks
+    stride over them."""
+    seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64,
+                        device=cuda_device)
+    got = batched_normal(seed, *shape)
+    assert torch.equal(got, batched_normal_reference(seed, *shape))
 
 
 @pytest.mark.cuda

@@ -48,7 +48,8 @@ def test_fit_and_host_transforms_equal(n_quantiles, subsample):
 def _luts():
     data = _data(1)
     return (JLUT.from_transform(JNST.fit(data, 500)),
-            NormalScoreLUT.from_transform(NormalScoreTransform.fit(data, 500)))
+            NormalScoreLUT.from_transform(NormalScoreTransform.fit(data, 500),
+                                          device="cpu"))
 
 
 def test_lut_tables_equal():

@@ -20,9 +20,12 @@ from mcmc_tpu.ops.window_kernel import (fused_window_sizes,
                                         make_fused_window_update)
 from mcmc_tpu_torch.interop import consts_from_numpy
 from mcmc_tpu_torch.models.chain_crf import init_state
-from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
+from mcmc_tpu_torch.ops.window_kernel import (MAX_SHARED_BYTES,
+                                              fused_window_update,
                                               fused_window_update_reference,
-                                              window_geometry)
+                                              window_geometry,
+                                              window_launch_config)
+from mcmc_tpu_torch.testing import edge_window_operands
 from tests.conftest import make_synthetic_problem
 from tests.test_chain_crf import build_small_chain
 from tests.torch_helpers import assert_delta_close, block_losses
@@ -75,7 +78,6 @@ def _draws(rng, pstatic, pconsts, prefinished):
 
 def _jax_geom(d, pairs, B):
     """geom rows as mcmc_tpu/models/chain_crf.py:475-498 builds them."""
-    SX, SY = fused_window_sizes(H, W, B)
     w, h = pairs[0, d["size_idx"]], pairs[1, d["size_idx"]]
     cx, cy = d["cx"], d["cy"]
     bxmin = np.maximum(0, (2 * cx - h) // 2)
@@ -83,12 +85,20 @@ def _jax_geom(d, pairs, B):
     bymin = np.maximum(0, (2 * cy - w) // 2)
     bymax = np.minimum(W, (2 * cy + w) // 2)
     off_x, off_y = (2 * cx - h) // 2, (2 * cy - w) // 2
+    return _jax_rows(bxmin, bxmax, bymin, bymax, off_x, off_y, h, w,
+                     d["size_idx"], B)
+
+
+def _jax_rows(bxmin, bxmax, bymin, bymax, off_x, off_y, h, w, size_idx, B):
+    """The JAX kernel's geom rows: the block, its window's start and the
+    proposal's offset in the window."""
+    SX, SY = fused_window_sizes(H, W, B)
     sx = (np.zeros_like(bxmin) if SX == H
           else np.clip(8 * ((bxmin - 1) // 8), 0, H - SX))
     sy = (np.zeros_like(bymin) if SY == W
           else np.clip(128 * ((bymin - 1) // 128), 0, W - SY))
     return np.stack([sx, sy, np.mod(off_x - sx, SX), np.mod(off_y - sy, SY),
-                     bxmin, bxmax, bymin, bymax, h, w, d["size_idx"]],
+                     bxmin, bxmax, bymin, bymax, h, w, size_idx],
                     axis=1).astype(np.int32)
 
 
@@ -152,6 +162,47 @@ def test_matches_pallas_kernel(problems, use_data_loss, prefinished):
     assert 0 < n_acc < 4 * N
 
 
+@pytest.mark.parametrize("use_data_loss", [False, True])
+def test_matches_pallas_kernel_at_the_edges(problems, use_data_loss):
+    """Blocks of the menu's smallest and largest sides centred on every
+    domain edge and corner (``mcmc_tpu_torch.testing.edge_window_operands``:
+    clipped windows, one-sided stencils, negative offsets, NaN in surf
+    and the data), the operands the card's kernel is held to: the port's
+    plain version against the Pallas kernel."""
+    pstatic, pconsts, fields0, loss0 = problems[use_data_loss]
+    B = pstatic.rf.B
+    pairs = pconsts.rf.pairs.numpy()
+    stacked, fields, geom, n = edge_window_operands(
+        pconsts, torch.as_tensor(fields0), (int(pairs.min()),
+                                            int(pairs.max())))
+    rng = np.random.default_rng(12)
+    fraw = rng.normal(0.0, 1.0, (n, B, B)).astype(np.float32)
+    fvals = np.stack([
+        rng.uniform(0, 1, n), np.full(n, loss0[0]),
+        np.full(n, pconsts.sigma_mc), np.full(n, pconsts.resolution),
+        np.full(n, pconsts.sigma_data), rng.uniform(20.0, 60.0, n) / 3.0],
+        axis=1).astype(np.float32)
+    fn = jax.jit(make_fused_window_update(H, W, B, interpret=True,
+                                          use_data_loss=use_data_loss))
+    g = geom.numpy().astype(np.int64)
+    fj, acc_j, dj, ddj = fn(
+        jnp.asarray(stacked.numpy()), jnp.asarray(fields.numpy()),
+        jnp.asarray(fraw), jnp.asarray(pconsts.rf.edge_masks.numpy()),
+        jnp.asarray(_jax_rows(*g.T, B)), jnp.asarray(fvals))
+    ft = fields.clone()
+    acc_t, dt, ddt = fused_window_update_reference(
+        stacked, ft, torch.as_tensor(fraw), pconsts.rf.edge_masks, geom,
+        torch.as_tensor(fvals), use_data_loss=use_data_loss)
+    np.testing.assert_array_equal(np.asarray(acc_j), acc_t.numpy())
+    assert 0 < int(acc_t.sum()) < n
+    scale_mc, scale_data = block_losses(fields.numpy(), stacked.numpy(), g,
+                                        pconsts)
+    assert_delta_close(np.asarray(dj), dt.numpy(), scale_mc)
+    assert_delta_close(np.asarray(ddj), ddt.numpy(), scale_data)
+    np.testing.assert_allclose(np.asarray(fj), ft.numpy(), rtol=5e-5,
+                               atol=1e-3)
+
+
 def test_geometry_floor_semantics():
     """Blocks centred near the top-left edge give negative offsets; the
     port's geometry must floor like the JAX formula, not truncate."""
@@ -196,3 +247,21 @@ def test_dispatcher_never_falls_back_off_the_cpu(problems):
         torch.as_tensor(_fvals(d, loss0, pconsts))]
     with pytest.raises(ValueError, match="no window kernel for device"):
         fused_window_update(*(a.to(meta) for a in args))
+
+
+@pytest.mark.parametrize("B", [2, 50, 80, 238])
+def test_launch_config_fits_shared_memory(B):
+    """One CTA of 256 threads a chain staging a (B + 3, B + 2) float32
+    tile: 27,224 bytes at the headline's B = 80, one block's 227 KB up
+    to B = 238."""
+    threads, smem = window_launch_config(B)
+    assert threads == 256 and smem == 4 * (B + 3) * (B + 2)
+    assert smem <= MAX_SHARED_BYTES
+    if B == 80:
+        assert smem == 27_224
+
+
+@pytest.mark.parametrize("B", [239, 512])
+def test_launch_config_refuses_what_does_not_fit(B):
+    with pytest.raises(ValueError, match="shared memory"):
+        window_launch_config(B)
