@@ -34,7 +34,13 @@ line or more each:
    LUT bitwise (or within 1 ulp, counted), the mixture CG within rtol /
    atol 2e-4 and, run to convergence, within 2e-3 of a float64 solve for
    a sample of chains, and a plain step from the same state and draws
-   flipping at most 1e-3 of the MH decisions; both times per launch;
+   flipping at most 1e-3 of the MH decisions; both times per launch; the
+   CG kernel's launch (chains and threads a CTA, shared bytes, registers,
+   resident CTAs and warps per multiprocessor) and its time at 0 and 1
+   iterations (the system's build alone, and one iteration); then an SGS
+   chain with 96 neighbours at the same width (``[cg-k96]``: K = 96, the
+   mixture CG kernel against its plain version on its own packed systems
+   and a few steps on the kernels against plain steps);
 7. SGS main path: ChainSGS -> MultiChainSampler(chain, 512) ->
    init(seeds=0) -> run(3 segments x 400 iterations) -> diagnostics,
    checking that each of the four kernels ran once per step, the loss is
@@ -54,6 +60,7 @@ line or more each:
    variogram, which has no mixture fit: K = 48, 48 CG iterations), within
    rtol / atol 2e-4, run to convergence within 2e-3 of a float64 solve,
    MH flips against a plain step at most 1e-3; both times per launch;
+   the kernel's launch and its time at 0 and 1 iterations, as in 6;
 11. the entry point at full width: the problem as an ``.npz`` and JSON
    configs in a temporary directory under the checkout, run through
    ``mcmc_tpu_torch.cli.main``: (a) the spherical SGS farm, 512 chains,
@@ -106,6 +113,8 @@ KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
                   "lut_kernel", "noise_kernel")
 NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
+K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
+K96_STEPS = 3
 ENTRY_SGS_ITERS = (400, 600)  # phase 11a: run, then resume to
 ENTRY_SEGMENT = 200
 ENTRY_CRF_ITERS = 300
@@ -892,7 +901,99 @@ def phase_sgs_kernels_vs_plain(chain, card):
               f"{GRID}^2, SB={SB} | bound {bound_ms:.4f} ms by {bound_by} "
               f"({card}; CUDA events, {len(recorded)} launches x 2 each)",
               flush=True)
+    _cg_launch_and_split("sgs-parity", mix_masked_cg, ops["cg"], K, True,
+                         out["cg"]["ms"], card)
     return out
+
+
+def _cg_launch_and_split(tag, kernel, recorded, K, mix, ms, card):
+    """A CG kernel's launch as the CUDA runtime reports it, and its time
+    per launch over the recorded operands (whose last item is the
+    iteration count) at 0 iterations (the system's build or load and w)
+    and at 1, beside ``ms`` at the recorded count."""
+    from mcmc_tpu_torch.ops.cg_kernel import cg_kernel_info
+
+    info = cg_kernel_info(K, mix=mix)
+    print(f"[{tag}] {kernel.__name__} launch at K={K}: "
+          f"{info['chains_per_cta']} chains ({info['threads']} threads) a "
+          f"CTA, {info['dynamic_shared_bytes']} B dynamic + "
+          f"{info['static_shared_bytes']} B static shared memory, "
+          f"{info['registers']} registers and {info['local_bytes']} B local "
+          f"memory a thread, {info['resident_ctas_per_sm']} resident CTAs = "
+          f"{info['resident_warps_per_sm']} warps a multiprocessor "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+    n_iters = recorded[0][-1]
+    t0, t1 = (float(np.mean([_time_ops(kernel, [op[:-1] + (it,)
+                                                for op in recorded])
+                             for _ in range(2)])) for it in (0, 1))
+    print(f"[{tag}] {kernel.__name__} per launch: 0 iterations {t0:.4f} ms "
+          f"(the system's build or load, and w), 1 iteration {t1:.4f} ms, "
+          f"{n_iters} iterations {ms:.4f} ms -> an iteration "
+          f"{(t1 - t0) * 1e3:.3f} us (from 0 to 1), "
+          f"{(ms - t0) / n_iters * 1e3:.3f} us (from 0 to {n_iters}) "
+          f"({card}; CUDA events, {len(recorded)} launches x 2 each)",
+          flush=True)
+
+
+def phase_cg_k96(p, card):
+    """An SGS chain with 96 neighbours (K = 96, three 32-row slots in the
+    CG kernel) at the headline's width: the mixture CG kernel against its
+    plain version on the chain's own packed systems, the state advancing
+    on the kernel step, a plain step from the same state and draws
+    flipping at most 1e-3 of the MH decisions."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
+                                              mix_masked_cg_reference)
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device(DEVICE)
+    chain = make_sgs_chain(p)
+    chain.set_sgs_param(K96, 30e3)
+    static, consts = chain.build(dev)
+    if static.K != K96 or not static.mix:
+        raise RuntimeError(f"the wide SGS chain has K = {static.K}, mixture "
+                           f"{bool(static.mix)}")
+    N = SGS_CHAINS
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, N)
+    kernel_step = sgs.make_sgs_kernel(static, "auto")
+    plain_step = sgs.make_sgs_kernel(static, "eager")
+    gen = make_generator(17, dev)
+    err = 0.0
+    viol = n_flip = 0
+    before = mix_masked_cg.launches
+    for _ in range(K96_STEPS):
+        d = sgs.draw(gen, static, consts, N)
+        draws = (d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
+        _, tr_p = plain_step(consts, _clone_state(state), *draws)
+        geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+        win = sgs.window_extract(consts.stacked, state.fields, geo.sx32,
+                                 geo.sy32, static.SB)
+        prep = sgs.prepare(static, consts, win, geo, d.noise, d.drop_u)
+        args = (prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p, prep.eps,
+                static.mix, static.cg_iters)
+        w, w_p = mix_masked_cg(*args), mix_masked_cg_reference(*args)
+        diff = (w - w_p).abs()
+        err = max(err, float(diff.max()))
+        viol += int((diff > CG_ATOL + CG_RTOL * w_p.abs()).sum())
+        state, tr = kernel_step(consts, state, *draws)
+        n_flip += int((tr["step"] != tr_p["step"]).sum())
+    launches = mix_masked_cg.launches - before
+    flip_rate = n_flip / (K96_STEPS * N)
+    finite = bool(torch.isfinite(state.loss_mc).all())
+    print(f"[cg-k96] SGS chain with {K96} neighbours: K {static.K}, SB "
+          f"{static.SB}, cg_iters {static.cg_iters}, {K96_STEPS} steps x {N} "
+          f"chains | mixture CG kernel vs plain: max abs err {err:.3e}, "
+          f"{viol} values beyond rtol/atol {CG_RTOL:g} | MH flips against a "
+          f"plain step {n_flip} = {flip_rate:.3e} (bound {FLIP_RATE_MAX:g}) "
+          f"| kernel launches {launches} | loss finite {finite} ({card})",
+          flush=True)
+    if viol or flip_rate > FLIP_RATE_MAX or not finite or launches != (
+            2 * K96_STEPS):
+        raise RuntimeError("the K = 96 SGS chain departs from its plain "
+                           "version on the card")
 
 
 def _sgs_reach(region, static):
@@ -1174,6 +1275,8 @@ def phase_masked_cg_vs_plain(chain, card):
           f"the same masked systems to convergence (not the same function) "
           f"{solve_ms:.4f} ms ({card}; CUDA events, {len(recorded)} launches "
           f"x 2 each)", flush=True)
+    _cg_launch_and_split("sph-parity", masked_cg, recorded, K, False, ms,
+                         card)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
@@ -1376,6 +1479,7 @@ def main():
     launches = phase_main_path(chain, card)
     sgs_chain = make_sgs_chain(p)
     sgs_parity = phase_sgs_kernels_vs_plain(sgs_chain, card)
+    phase_cg_k96(p, card)
     sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
     del sgs_chain
     for kernel, key in (("window_extract", "extract"),

@@ -3,7 +3,10 @@
 Every function takes numpy arrays (for example ``jax.tree.map(np.asarray,
 consts)`` of the JAX package's objects) and read them by attribute name,
 so nothing here imports JAX: the same inputs then reach both packages and
-their results can be compared value for value.
+their results can be compared value for value.  Like every entry point of
+the port, each lands its tensors on the card unless the caller asks for
+the CPU (``device="cpu"``); without a card it raises
+(``utils/rng.resolve_device``).
 """
 
 from __future__ import annotations
@@ -18,16 +21,17 @@ from .models.chain_sgs import SGSConsts, SGSState, SGSStatic
 from .models.randfield import RandFieldArrays, RandFieldStatic
 from .ops.covariance import CovarianceSpec
 from .ops.transforms import NormalScoreLUT
+from .utils.rng import resolve_device
 
 _RF_SCALARS = ("scale_min", "scale_max", "nugget_max", "range_min_x",
                "range_max_x", "range_min_y", "range_max_y")
 
 
-def consts_from_numpy(consts, static: Mapping, device="cpu"):
+def consts_from_numpy(consts, static: Mapping, device=None):
     """(CRFStatic, CRFConsts) of the port from the JAX package's
     ``CRFConsts`` with numpy leaves and its ``CRFStatic`` fields as plain
     values (``dataclasses.asdict(static)``)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     fields = dict(static)
     rf_fields = dict(fields.pop("rf"))
     port_static = CRFStatic(rf=RandFieldStatic(**rf_fields), **fields)
@@ -51,11 +55,11 @@ def consts_from_numpy(consts, static: Mapping, device="cpu"):
     return port_static, port_consts
 
 
-def state_from_numpy(state, device="cpu") -> ChainState:
+def state_from_numpy(state, device=None) -> ChainState:
     """The port's batched ``ChainState`` from the JAX package's chain state
     with numpy leaves: batched (leading chain axis, as from ``vmap``) or a
     single chain."""
-    device = torch.device(device)
+    device = resolve_device(device)
     fields = np.array(state.fields, np.float32)
     single = fields.ndim == 3
 
@@ -74,13 +78,13 @@ def state_from_numpy(state, device="cpu") -> ChainState:
         accepted=vec(state.accepted, torch.int32))
 
 
-def sgs_consts_from_numpy(consts, static: Mapping, device="cpu"):
+def sgs_consts_from_numpy(consts, static: Mapping, device=None):
     """(SGSStatic, SGSConsts) of the port from the JAX package's
     ``SGSConsts`` with numpy leaves (its nested ``NormalScoreLUT`` too)
     and its ``SGSStatic`` fields as plain values
     (``dataclasses.asdict(static)``, the nested ``CovarianceSpec`` a dict
     too)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     fields = dict(static)
     spec = dict(fields.pop("spec"))
     table = spec.get("matern_table")
@@ -120,11 +124,11 @@ def sgs_consts_from_numpy(consts, static: Mapping, device="cpu"):
     return port_static, port_consts
 
 
-def sgs_state_from_numpy(state, device="cpu") -> SGSState:
+def sgs_state_from_numpy(state, device=None) -> SGSState:
     """The port's batched ``SGSState`` from the JAX package's SGS state
     with numpy leaves: batched (leading chain axis) or a single chain.
     The JAX key is not read."""
-    device = torch.device(device)
+    device = resolve_device(device)
     fields = np.array(state.fields, np.float32)
     single = fields.ndim == 3
 

@@ -34,20 +34,22 @@ Three pieces each, as for every kernel of the port:
 The plain versions sum in the kernels' order, so they differ only where
 the kernel's ``expf`` and PyTorch's ``exp`` round differently.  Against
 the JAX package's kernels (XLA or Mosaic sums, another ``exp``) they agree
-to float32 roundoff on well-conditioned systems.  The kernels take K <= 64
-(one CTA of 64 threads per chain) and reject larger K.
+to float32 roundoff on well-conditioned systems.  The plain versions take
+any K; the kernels take every K whose one-chain system fits a CTA's
+shared memory on the card (``kernel_max_k``), and the dispatchers refuse
+a larger K, naming that limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .covariance import eval_mixture_static, mixture_families
 
-MAX_K = 64          # one CTA of 64 threads per chain
 _MAX_TERMS = 16     # per mixture family (the fit's dictionaries have <= 13)
 
 
@@ -67,14 +69,19 @@ def _eps_vector(eps, N, like):
 
 
 def _kernel_order_sum(v):
-    """Row sums of (N, K <= 64) in the kernel's order: per 32-lane warp a
-    butterfly (lane l adds lane l + 16, then + 8, ... + 1), then warp 0's
-    sum plus warp 1's."""
+    """Row sums of (N, K) in the kernel's order: rows in slots of 32 (slot
+    r holds rows 32r .. 32r + 31, zero-padded, at least two slots); per
+    slot a butterfly (lane l adds lane l + 16, then + 8, ... + 1); then
+    the slots' sums added in rising order."""
     N, K = v.shape
-    w = torch.nn.functional.pad(v, (0, MAX_K - K)).view(N, 2, 32)
+    R = max(2, -(-K // 32))
+    w = torch.nn.functional.pad(v, (0, 32 * R - K)).view(N, R, 32)
     for off in (16, 8, 4, 2, 1):
         w = w[:, :, :off] + w[:, :, off:2 * off]
-    return w[:, 0] + w[:, 1]                      # (N, 1)
+    s = w[:, 0] + w[:, 1]
+    for r in range(2, R):
+        s = s + w[:, r]
+    return s                                      # (N, 1)
 
 
 def _cg_kernel_order(cols, m, rhs, n_iters: int):
@@ -117,9 +124,6 @@ def mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
     convergence (condition numbers ~1e4), where two orders of the same
     float32 sums drift apart by ~1e-3 of the solution; in the same order
     the plain version and the kernel stay together."""
-    N, K = mask.shape
-    if K > MAX_K:
-        raise ValueError(f"K = {K} packed cells; at most {MAX_K}")
     q0, q1, q2 = (_f32(q) for q in mix[4])
     dif = iaf[:, :, None] - iaf[:, None, :]
     djf = jaf[:, :, None] - jaf[:, None, :]
@@ -135,9 +139,6 @@ def masked_cg_reference(Sigma, mask, rhs, eps, n_iters: int = 48):
     (N,).  Returns w (N, K) with masked slots zeroed.  Row j of the masked
     system serves as column j, as in the kernel and in ``_cg_core``
     (Sigma is symmetric)."""
-    N, K = mask.shape
-    if K > MAX_K:
-        raise ValueError(f"K = {K} packed cells; at most {MAX_K}")
     A = _masked_system(Sigma, mask, eps).contiguous()  # A[:, j] = row j
     return _cg_kernel_order(A, mask, rhs, n_iters)
 
@@ -199,22 +200,66 @@ def _cuda_library():
         lib.mcmc_masked_cg.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.mcmc_masked_cg.restype = ctypes.c_int
+        lib.mcmc_cg_max_k.argtypes = [ctypes.c_void_p]
+        lib.mcmc_cg_max_k.restype = ctypes.c_int
+        lib.mcmc_cg_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.mcmc_cg_info.restype = ctypes.c_int
         lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _raise_on(err, what):
+    if err != 0:
+        msg = _cuda_library().mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"CG kernel {what} failed: {msg} ({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def _max_k(device_index: int) -> int:
+    lib = _cuda_library()
+    out = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        _raise_on(lib.mcmc_cg_max_k(ctypes.addressof(out)), "query")
+    return out.value
+
+
+def kernel_max_k(device=None) -> int:
+    """The largest K the CUDA kernels take on ``device`` (the current
+    card by default): one chain's K x K system, its rows padded to a
+    multiple of 4, in one CTA's opt-in shared memory (the limit is
+    computed beside the kernels, ``csrc/cg_kernel.cu::card_limits``)."""
+    dev = torch.device("cuda" if device is None else device)
+    return _max_k(torch.cuda.current_device() if dev.index is None
+                  else dev.index)
+
+
+def cg_kernel_info(K: int, mix: bool = True, device=None) -> dict:
+    """The launch of the mixture (``mix``) or given-Sigma CG kernel at
+    ``K`` as the CUDA runtime reports it on the card: threads and chains
+    a CTA, dynamic and static shared bytes, registers and local (spill)
+    bytes a thread, resident CTAs and warps a multiprocessor."""
+    lib = _cuda_library()
+    out = (ctypes.c_int * 7)()
+    dev = torch.device("cuda" if device is None else device)
+    with torch.cuda.device(dev):
+        _raise_on(lib.mcmc_cg_info(int(mix), int(K), ctypes.addressof(out)),
+                  "query")
+    info = dict(zip(("threads", "chains_per_cta", "dynamic_shared_bytes",
+                     "static_shared_bytes", "registers", "local_bytes",
+                     "resident_ctas_per_sm"), list(out)))
+    info["resident_warps_per_sm"] = (info["resident_ctas_per_sm"]
+                                     * info["threads"] // 32)
+    return info
+
+
 def _check_operands(mask, named, shapes):
     """The kernels' operand rules, held on both devices: a CPU or CUDA
-    device, K <= MAX_K, every tensor float32, contiguous, on mask's
-    device, of its expected shape."""
+    device, every tensor float32, contiguous, on mask's device, of its
+    expected shape; on the card, K within the kernels' limit."""
     if mask.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no CG kernel for device {mask.device}")
-    N, K = mask.shape
-    if K > MAX_K:
-        raise ValueError(f"the CG kernel takes K <= {MAX_K} packed "
-                         f"conditioning cells (one CTA of {MAX_K} threads "
-                         f"per chain); got K = {K}")
     for (name, t), shape in zip(named, shapes):
         if t.device != mask.device:
             raise ValueError(f"{name} is on {t.device}, mask on "
@@ -226,6 +271,12 @@ def _check_operands(mask, named, shapes):
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    K = mask.shape[1]
+    if mask.device.type == "cuda" and K > kernel_max_k(mask.device):
+        raise ValueError(
+            f"the CG kernels take K <= {kernel_max_k(mask.device)} packed "
+            f"conditioning cells on this card (one chain's K x K float32 "
+            f"system in one CTA's shared memory); got K = {K}")
 
 
 def _launch(fn, mask, pointers, params):
@@ -236,9 +287,7 @@ def _launch(fn, mask, pointers, params):
     stream = torch.cuda.current_stream(mask.device).cuda_stream
     with torch.cuda.device(mask.device):
         err = fn(*pointers, out.data_ptr(), *params, stream)
-    if err != 0:
-        msg = _cuda_library().mcmc_cuda_error_string(err).decode()
-        raise RuntimeError(f"CG kernel launch failed: {msg} ({err})")
+    _raise_on(err, "launch")
     return out
 
 

@@ -18,7 +18,7 @@ from mcmc_tpu.ops import kriging as jkr
 from mcmc_tpu.ops.cg_kernel import lanes_mix_masked_cg
 from mcmc_tpu.ops.covariance import CovarianceSpec, fit_cov_mixture
 from mcmc_tpu_torch.ops import kriging as tkr
-from mcmc_tpu_torch.ops.cg_kernel import (MAX_K, mix_masked_cg,
+from mcmc_tpu_torch.ops.cg_kernel import (_kernel_order_sum, mix_masked_cg,
                                           mix_masked_cg_reference, mix_params)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
 
@@ -38,7 +38,7 @@ def _fitted_mix():
                  for a in (ag, bg, ae, be, (q, 0.0, q)))
 
 
-def _system(rng, mix):
+def _system(rng, mix, K=K):
     idx = np.stack([rng.permutation(SB * SB)[:K] for _ in range(C)])
     ia = (idx // SB).astype(np.float32)
     ja = (idx % SB).astype(np.float32)
@@ -57,13 +57,16 @@ def _sigma(mix, ia, ja):
     return eval_mixture_static(mix, torch.from_numpy(h2)).numpy()
 
 
-@pytest.mark.parametrize("which", ["fitted_dyadic", "non_dyadic"])
+@pytest.mark.parametrize("which", ["fitted_dyadic", "non_dyadic",
+                                   "fitted_dyadic_k96"])
 def test_mix_cg_matches_pallas_and_f64(which):
-    """Per-chain eps and masked slots; C = 5 chains."""
-    mix = _fitted_mix() if which == "fitted_dyadic" else MIX_NON_DYADIC
+    """Per-chain eps and masked slots; C = 5 chains, K = 48, and K = 96
+    (three 32-row slots in the kernel's sums)."""
+    mix = MIX_NON_DYADIC if which == "non_dyadic" else _fitted_mix()
     assert len(mix[0]) >= 2
-    ia, ja, mask, rhs, eps = _system(np.random.default_rng(7), mix)
-    n_iters = 64 if which == "fitted_dyadic" else 96
+    ia, ja, mask, rhs, eps = _system(np.random.default_rng(7), mix,
+                                     96 if which.endswith("k96") else K)
+    n_iters = 96 if which == "non_dyadic" else 64
     want = np.asarray(lanes_mix_masked_cg(
         jnp.asarray(ia), jnp.asarray(ja), jnp.asarray(mask),
         jnp.asarray(rhs), jnp.asarray(eps), mix, n_iters, interpret=True))
@@ -101,7 +104,36 @@ def test_mix_params_layout():
                                   np.float32([-0.05, -0.3]))
     np.testing.assert_array_equal(np.array(p.q, np.float32),
                                   np.float32([1.0, 0.5, 2.0]))
-    assert MAX_K == 64
+
+
+@pytest.mark.parametrize("n", [20, 48, 64, 96, 200])
+def test_kernel_order_sum_matches_the_stated_order(n):
+    """The plain CGs' dot products sum as the kernels do: rows in slots of
+    32 (at least two), per slot the butterfly lane l += lane l + off for
+    off = 16, 8, 4, 2, 1, then the slots' sums in rising order; here by a
+    float32 loop written out, bit for bit.  For K <= 64 that is a
+    64-thread CTA's warp 0 plus warp 1."""
+    v = np.random.default_rng(n).normal(size=(6, n)).astype(np.float32)
+    slots = max(2, -(-n // 32))
+    want = np.empty(6, np.float32)
+    for c in range(6):
+        w = np.zeros(32 * slots, np.float32)
+        w[:n] = v[c]
+        sums = []
+        for r in range(slots):
+            lane = w[32 * r:32 * r + 32].copy()
+            for off in (16, 8, 4, 2, 1):
+                for i in range(off):
+                    lane[i] = np.float32(lane[i] + lane[i + off])
+            sums.append(lane[0])
+        s = np.float32(sums[0] + sums[1])
+        for r in range(2, slots):
+            s = np.float32(s + sums[r])
+        want[c] = s
+    got = _kernel_order_sum(torch.from_numpy(v))
+    assert got.shape == (6, 1)
+    np.testing.assert_array_equal(got[:, 0].numpy().view(np.int32),
+                                  want.view(np.int32))
 
 
 @pytest.mark.parametrize("batched_eps", [False, True])

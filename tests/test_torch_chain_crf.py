@@ -98,7 +98,8 @@ def built(request, problem):
     jchain = _jax_chain(problem, request.param)
     jstatic, jconsts = jchain.build()
     pstatic, pconsts = consts_from_numpy(jax.tree.map(np.asarray, jconsts),
-                                         dataclasses.asdict(jstatic))
+                                         dataclasses.asdict(jstatic),
+                                         device="cpu")
     beds = np.random.default_rng(3).normal(
         problem["initial_bed"], 5.0, (N, H, W)).astype(np.float32)
     beds = np.minimum(beds, problem["surf"] - 5.0).astype(np.float32)
@@ -143,7 +144,7 @@ def test_init_state_matches_jax(built):
                                rtol=1e-5)
     assert st.accepted.dtype == torch.int32 and int(st.accepted.sum()) == 0
     # the interop copy of the JAX state is the same state
-    via = state_from_numpy(js)
+    via = state_from_numpy(js, device="cpu")
     assert torch.equal(via.fields, torch.from_numpy(np.array(js.fields)))
     assert torch.equal(via.loss_mc, torch.from_numpy(np.array(js.loss_mc)))
 
@@ -212,7 +213,7 @@ def test_ten_steps_match_vmapped_make_kernel(built, impl):
                              in_axes=(None, 0, 0, 0, 0, 0, 0, 0, 0)))
     pstep = make_kernel(pstatic, impl)
     jstates = _jax_states(built)
-    pstates = state_from_numpy(_numpy_state(jstates))
+    pstates = state_from_numpy(_numpy_state(jstates), device="cpu")
     region = np.asarray(jconsts.region_cells)
     pairs = np.asarray(jconsts.rf.pairs)
     rng = np.random.default_rng(17)

@@ -17,7 +17,8 @@ from mcmc_tpu_torch import MultiChainSampler
 from mcmc_tpu_torch.models import chain_sgs as sgs
 from mcmc_tpu_torch.models.chain_crf import (draw, init_state, propose,
                                              window_operands)
-from mcmc_tpu_torch.ops.cg_kernel import (masked_cg, masked_cg_reference,
+from mcmc_tpu_torch.ops.cg_kernel import (cg_kernel_info, kernel_max_k,
+                                          masked_cg, masked_cg_reference,
                                           mix_masked_cg,
                                           mix_masked_cg_reference)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
@@ -253,8 +254,9 @@ def test_mix_cg_kernel_matches_plain_version(cuda_device):
         w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
         torch.testing.assert_close(got[i][sel].double(), w64, rtol=2e-3,
                                    atol=2e-3)
-    with pytest.raises(ValueError, match="K <= 64"):
-        z = torch.zeros((2, 65), device=cuda_device)
+    big = kernel_max_k() + 1
+    with pytest.raises(ValueError, match=f"K <= {big - 1} "):
+        z = torch.zeros((2, big), device=cuda_device)
         mix_masked_cg(z, z, z, z, 1e-3, static.mix, 4)
 
 
@@ -354,9 +356,89 @@ def test_masked_cg_kernel_matches_plain_version(cuda_device):
         w64 = torch.linalg.solve(A, prep.rhs_p[i][sel].double())
         torch.testing.assert_close(conv[i][sel].double(), w64, rtol=2e-3,
                                    atol=2e-3)
-    with pytest.raises(ValueError, match="K <= 64"):
-        z = torch.zeros((2, 65), device=cuda_device)
-        masked_cg(torch.zeros((2, 65, 65), device=cuda_device), z, z, 1e-3)
+    big = kernel_max_k() + 1
+    with pytest.raises(ValueError, match=f"K <= {big - 1} "):
+        z = torch.zeros((2, big), device=cuda_device)
+        masked_cg(torch.zeros((2, big, big), device=cuda_device), z, z, 1e-3)
+
+
+def _cg_operands(device, n, K, seed):
+    """n chains' packed systems at K: distinct cells of a 40 x 40 window,
+    80 % of the slots unmasked, per-chain eps; and an SPD Sigma."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.permutation(1600)[:K] for _ in range(n)])
+    mask = (rng.random((n, K)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    G = rng.normal(size=(n, K, K))
+    sigma = G @ np.swapaxes(G, 1, 2) / K + np.eye(K)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return (dev(idx // 40), dev(idx % 40), dev(mask),
+            dev(rng.normal(size=(n, K))), dev(np.linspace(1e-3, 3e-3, n)),
+            dev(sigma))
+
+
+def _assert_mix_cg_equal(got, want):
+    """Bitwise, unless the kernel's expf and PyTorch's exp round apart:
+    then within rtol/atol 2e-4, as at the headline."""
+    if not torch.equal(got, want):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [20, 33, 48, 64, 96, "max"])
+def test_cg_kernels_bitwise_across_k(cuda_device, K):
+    """Both CG kernels against their plain versions at one to seven
+    32-row slots, the card's largest K included, at 13 chains (a ragged
+    last CTA wherever a CTA holds several chains); the given-Sigma kernel
+    bitwise, the mixture kernel bitwise unless expf rounds apart."""
+    K = kernel_max_k() if K == "max" else K
+    iaf, jaf, mask, rhs, eps, sigma = _cg_operands(cuda_device, 13, K, K)
+    mix = ((0.5, 0.3), (0.01, 0.002), (0.4,), (0.05,), (1.0, 0.1, 1.2))
+    for n_iters in (0, 1, 64):
+        _assert_mix_cg_equal(
+            mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, n_iters),
+            mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, mix, n_iters))
+        got = masked_cg(sigma, mask, rhs, eps, n_iters)
+        assert torch.equal(got, masked_cg_reference(sigma, mask, rhs, eps,
+                                                    n_iters))
+        assert (got[mask == 0] == 0).all() and torch.isfinite(got).all()
+    for mixed in (True, False):
+        info = cg_kernel_info(K, mix=mixed)
+        assert info["resident_ctas_per_sm"] >= 1
+        assert info["threads"] == 32 * info["chains_per_cta"]
+
+
+@pytest.mark.cuda
+def test_cg_kernels_many_chains(cuda_device):
+    """2,001 chains at the headline K = 48: 501 CTAs of four chains, the
+    last holding one; both kernels against their plain versions, the
+    mixture from a fitted dyadic chain (one expf and squarings)."""
+    static = small_sgs_chain(small_problem()).build(cuda_device)[0]
+    iaf, jaf, mask, rhs, eps, sigma = _cg_operands(cuda_device, 2001, 48, 1)
+    assert cg_kernel_info(48)["chains_per_cta"] == 4
+    _assert_mix_cg_equal(
+        mix_masked_cg(iaf, jaf, mask, rhs, eps, static.mix, 64),
+        mix_masked_cg_reference(iaf, jaf, mask, rhs, eps, static.mix, 64))
+    assert torch.equal(masked_cg(sigma, mask, rhs, eps, 48),
+                       masked_cg_reference(sigma, mask, rhs, eps, 48))
+
+
+@pytest.mark.cuda
+def test_cg_kernels_refuse_k_above_the_card_limit(cuda_device):
+    """One above the card's largest K both dispatchers refuse, naming the
+    limit; the plain versions take it."""
+    lim = kernel_max_k()
+    assert lim >= 160
+    iaf, jaf, mask, rhs, eps, sigma = _cg_operands(cuda_device, 2, lim + 1, 5)
+    mix = ((0.5,), (0.01,), (), (), (1.0, 0.0, 1.0))
+    with pytest.raises(ValueError, match=f"K <= {lim} .*got K = {lim + 1}"):
+        mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, 4)
+    with pytest.raises(ValueError, match=f"K <= {lim} .*got K = {lim + 1}"):
+        masked_cg(sigma, mask, rhs, eps, 4)
+    assert torch.isfinite(masked_cg_reference(sigma, mask, rhs, eps, 4)).all()
 
 
 @pytest.mark.cuda

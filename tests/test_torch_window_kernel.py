@@ -53,7 +53,8 @@ def problems():
                                 sigma_data=20.0)
         static, consts = chain.build()
         pstatic, pconsts = consts_from_numpy(
-            jax.tree.map(np.asarray, consts), dataclasses.asdict(static))
+            jax.tree.map(np.asarray, consts), dataclasses.asdict(static),
+            device="cpu")
         beds = np.random.default_rng(3).normal(
             p["initial_bed"], 5.0, (N, H, W)).astype(np.float32)
         st = init_state(beds, pconsts)
