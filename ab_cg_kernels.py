@@ -33,26 +33,28 @@ import chip_smoke as cs
 DRAWS = 10
 
 
-def _other_library(checkout):
-    """The other checkout's CG kernels, built into this checkout's build
-    directory with this checkout's flags, argtypes as this one's."""
+def other_library(checkout, name, bind):
+    """Another checkout's ``mcmc_tpu_torch/ops/csrc/<name>.cu``, built into
+    this checkout's build directory with this checkout's flags, its entry
+    points typed by ``bind`` (the module's ``bind_library``)."""
     from mcmc_tpu_torch.ops.cuda_build import BUILD_DIR, NVCC_FLAGS, find_nvcc
 
-    src = Path(checkout) / "mcmc_tpu_torch" / "ops" / "csrc" / "cg_kernel.cu"
+    src = Path(checkout) / "mcmc_tpu_torch" / "ops" / "csrc" / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libcg_kernel_other_{digest}.so"
+    out = BUILD_DIR / f"lib{name}_other_{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
                        check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    lib.mcmc_mix_masked_cg.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.mcmc_mix_masked_cg.restype = ctypes.c_int
-    lib.mcmc_masked_cg.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.mcmc_masked_cg.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(str(out)))
+
+
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
 
 
 def _operands(chain, gen_seed, spherical):
@@ -95,12 +97,10 @@ def main(argv):
         raise SystemExit("ab_cg_kernels: torch.cuda.is_available() is false")
     from mcmc_tpu_torch.ops import cg_kernel as cgk
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    card = card_name()
     print(card, flush=True)
-    libs = {"other": _other_library(argv[1]), "this": cgk._cuda_library()}
+    libs = {"other": other_library(argv[1], "cg_kernel", cgk.bind_library),
+            "this": cgk._cuda_library()}
     p = cs.build_problem()
     mix_static, mix_ops = _operands(cs.make_sgs_chain(p), 11, False)
     sph_static, sph_ops = _operands(cs.make_spherical_chain(p), 13, True)

@@ -34,13 +34,18 @@ line or more each:
    LUT bitwise (or within 1 ulp, counted), the mixture CG within rtol /
    atol 2e-4 and, run to convergence, within 2e-3 of a float64 solve for
    a sample of chains, and a plain step from the same state and draws
-   flipping at most 1e-3 of the MH decisions; both times per launch; the
-   CG kernel's launch (chains and threads a CTA, shared bytes, registers,
-   resident CTAs and warps per multiprocessor) and its time at 0 and 1
+   flipping at most 1e-3 of the MH decisions; both times per launch; each
+   window kernel's launch (CTAs, threads a CTA, registers, resident CTAs
+   per multiprocessor) and share of its bound; the CG kernel's launch
+   (chains and threads a CTA, shared bytes, registers, resident CTAs and
+   warps per multiprocessor) and its time at 0 and 1
    iterations (the system's build alone, and one iteration); then an SGS
    chain with 96 neighbours at the same width (``[cg-k96]``: K = 96, the
    mixture CG kernel against its plain version on its own packed systems
-   and a few steps on the kernels against plain steps);
+   and a few steps on the kernels against plain steps); and both window
+   kernels bitwise against their plain versions with SB 37 on the odd
+   45 x 67 grid and on 45 x 64 (the two writeback paths), the four
+   clamped corners among the starts (``[sgs-window-edge]``);
 7. SGS main path: ChainSGS -> MultiChainSampler(chain, 512) ->
    init(seeds=0) -> run(3 segments x 400 iterations) -> diagnostics,
    checking that each of the four kernels ran once per step, the loss is
@@ -115,6 +120,7 @@ NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
 K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
 K96_STEPS = 3
+WINDOW_EDGE = ((45, 67, 37), (45, 64, 37))  # [sgs-window-edge]: H, W, SB
 ENTRY_SGS_ITERS = (400, 600)  # phase 11a: run, then resume to
 ENTRY_SEGMENT = 200
 ENTRY_CRF_ITERS = 300
@@ -370,6 +376,22 @@ def _covered_cells(r0, r1, c0, c1, H, W):
                           c1.tolist()):
         cover[a:b, c:d] = True
     return int(cover.sum())
+
+
+def extract_bytes(sx, sy, SB, H, W):
+    """Bytes one window extract must move: the state windows and the
+    distinct const cells they cover read, the (N, 14, SB, SB) windows
+    written, the starts read."""
+    N = sx.shape[0]
+    covered = _covered_cells(sx.cpu(), sx.cpu() + SB, sy.cpu(),
+                             sy.cpu() + SB, H, W)
+    return 4.0 * (N * 4 * SB * SB + 10 * covered + N * 14 * SB * SB) + 8 * N
+
+
+def writeback_bytes(write, SB):
+    """Bytes one window writeback must move: the written chains' windows
+    read and written back; the starts and write flags read."""
+    return 4.0 * 2 * int(write.sum()) * 4 * SB * SB + 9 * write.shape[0]
 
 
 def _time_ops(fn, ops):
@@ -851,17 +873,10 @@ def phase_sgs_kernels_vs_plain(chain, card):
         ops["writeback"].append((new_w, sx, sy, sc.write))
         ops["cg"].append(cg_args)
         ops["lut"].append(args)
-        # bytes each function must move: the state windows and the
-        # distinct const cells read, the (N, 14, SB, SB) windows written;
-        # the written chains' windows read and written back; the LUT's
-        # values in and out and its table
-        covered = _covered_cells(sx.cpu(), sx.cpu() + SB, sy.cpu(),
-                                 sy.cpu() + SB, H, W)
-        work["extract"].append((4.0 * (N * 4 * SB * SB + 10 * covered
-                                       + N * 14 * SB * SB) + 8 * N, 0.0))
-        n_write = int(sc.write.sum())
-        work["writeback"].append((4.0 * 2 * n_write * 4 * SB * SB + 9 * N,
-                                  0.0))
+        # bytes each function must move (the LUT's values in and out and
+        # its table)
+        work["extract"].append((extract_bytes(sx, sy, SB, H, W), 0.0))
+        work["writeback"].append((writeback_bytes(sc.write, SB), 0.0))
         work["cg"].append(_cg_work(N, K, static.cg_iters,
                                    11 + 3 * (static.Mg + static.Me),
                                    4 * (4 * K + 1)))
@@ -901,9 +916,67 @@ def phase_sgs_kernels_vs_plain(chain, card):
               f"{GRID}^2, SB={SB} | bound {bound_ms:.4f} ms by {bound_by} "
               f"({card}; CUDA events, {len(recorded)} launches x 2 each)",
               flush=True)
+    _window_launches(N, consts.stacked.shape[0], state.fields.shape[1], SB,
+                     out, card)
     _cg_launch_and_split("sgs-parity", mix_masked_cg, ops["cg"], K, True,
                          out["cg"]["ms"], card)
     return out
+
+
+def _window_launches(N, NP, NS, SB, out, card):
+    """Each window kernel's launch as the CUDA runtime reports it, beside
+    its time per launch and share of the bound.  PyTorch's allocations
+    are 32-byte aligned, so the writeback covers whole sectors where
+    GRID % 8 == 0."""
+    from mcmc_tpu_torch.ops.sgs_window_kernel import sgs_window_kernel_info
+
+    writeback = "writeback_sectors" if GRID % 8 == 0 else "writeback_in_window"
+    for name, kernel, planes in (("extract", "extract", NP + NS),
+                                 ("writeback", writeback, NS)):
+        info = sgs_window_kernel_info(kernel)
+        r = out[name]
+        print(f"[sgs-parity] window_{name} launch at SB={SB} ({kernel}): "
+              f"{N} x {planes} = {N * planes} CTAs of {info['threads']} "
+              f"threads, {info['registers']} registers and "
+              f"{info['local_bytes']} B local memory a thread, "
+              f"{info['resident_ctas_per_sm']} resident CTAs a "
+              f"multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
+              f" | {r['ms']:.4f} ms = {r['bound_ms'] / r['ms']:.3f} of its "
+              f"{r['bound_ms']:.4f} ms bound ({card})", flush=True)
+
+
+def phase_sgs_window_edges(card):
+    """Both window kernels bitwise against their plain versions with an
+    odd SB = 37 on the odd 45 x 67 grid (the writeback within the window)
+    and on 45 x 64 (the full-sector writeback), the four clamped corners
+    among the starts and a mixed write mask
+    (``mcmc_tpu_torch.testing.sgs_window_operands``)."""
+    import torch
+
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (
+        window_extract, window_extract_reference, window_writeback,
+        window_writeback_reference)
+    from mcmc_tpu_torch.testing import sgs_window_operands
+
+    same = {}
+    for H, W, SB in WINDOW_EDGE:
+        cons, fields, sx, sy, new_w, write = sgs_window_operands(
+            H, W, SB, SGS_CHAINS, DEVICE)
+        got = window_extract(cons, fields, sx, sy, SB)
+        same[f"extract {H}x{W}"] = torch.equal(
+            got, window_extract_reference(cons, fields, sx, sy, SB))
+        k, p = fields.clone(), fields.clone()
+        window_writeback(k, new_w, sx, sy, write)
+        window_writeback_reference(p, new_w, sx, sy, write)
+        same[f"writeback {H}x{W}"] = (torch.equal(k, p) and torch.equal(
+            k[~write], fields[~write]))
+        n_write = int(write.sum())
+    print(f"[sgs-window-edge] SB {SB}, {SGS_CHAINS} chains, the four "
+          f"clamped corners among the starts, {n_write} chains writing: "
+          f"bitwise against the plain versions {same} ({card})", flush=True)
+    if not all(same.values()):
+        raise RuntimeError("a window kernel disagrees with its plain version "
+                           "on the odd grid")
 
 
 def _cg_launch_and_split(tag, kernel, recorded, K, mix, ms, card):
@@ -1479,6 +1552,7 @@ def main():
     launches = phase_main_path(chain, card)
     sgs_chain = make_sgs_chain(p)
     sgs_parity = phase_sgs_kernels_vs_plain(sgs_chain, card)
+    phase_sgs_window_edges(card)
     phase_cg_k96(p, card)
     sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
     del sgs_chain

@@ -188,25 +188,33 @@ def mix_params(mix) -> _Mix:
     return p
 
 
+def bind_library(lib):
+    """Type the C entry points of a loaded ``cg_kernel`` library (this
+    one, or another checkout's in ``ab_cg_kernels.py``); untyped, ctypes
+    cuts the pointers."""
+    lib.mcmc_mix_masked_cg.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.POINTER(_Mix)]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.mcmc_mix_masked_cg.restype = ctypes.c_int
+    lib.mcmc_masked_cg.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.mcmc_masked_cg.restype = ctypes.c_int
+    lib.mcmc_cg_max_k.argtypes = [ctypes.c_void_p]
+    lib.mcmc_cg_max_k.restype = ctypes.c_int
+    lib.mcmc_cg_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.mcmc_cg_info.restype = ctypes.c_int
+    lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _cuda_library():
     from .cuda_build import load_library
 
     lib = load_library("cg_kernel").lib
-    if lib.mcmc_mix_masked_cg.argtypes is None:  # else pointers are cut
-        lib.mcmc_mix_masked_cg.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.POINTER(_Mix)]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.mcmc_mix_masked_cg.restype = ctypes.c_int
-        lib.mcmc_masked_cg.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.mcmc_masked_cg.restype = ctypes.c_int
-        lib.mcmc_cg_max_k.argtypes = [ctypes.c_void_p]
-        lib.mcmc_cg_max_k.restype = ctypes.c_int
-        lib.mcmc_cg_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.mcmc_cg_info.restype = ctypes.c_int
-        lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    if lib.mcmc_mix_masked_cg.argtypes is None:
+        bind_library(lib)
     return lib
 
 

@@ -18,7 +18,10 @@ Three pieces each, as for every kernel of the port:
   PyTorch (advanced indexing);
 - ``csrc/sgs_window_kernel.cu``: the hand-written CUDA kernels for Hopper
   that replace the Pallas kernels ``mcmc_tpu/ops/sgs_window_kernel.py::
-  make_window_extract`` and ``make_window_writeback``;
+  make_window_extract`` and ``make_window_writeback``: one CTA per (chain,
+  plane); where W % 8 == 0 the writeback writes whole 32-byte sectors,
+  rewriting the cells beside the window unchanged
+  (``sgs_window_kernel_info``);
 - ``window_extract`` / ``window_writeback``: the dispatchers.  A CPU
   tensor goes to the plain version; a CUDA tensor launches the kernel or
   raises.  Nothing falls back.  ``.launches`` counts kernel launches.
@@ -75,20 +78,32 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def bind_library(lib):
+    """Type the two launches' C entry points of a loaded
+    ``sgs_window_kernel`` library (this one, or another checkout's in
+    ``ab_window_kernels.py``); untyped, ctypes cuts the pointers."""
+    lib.mcmc_window_extract.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.mcmc_window_extract.restype = ctypes.c_int
+    lib.mcmc_window_writeback.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.mcmc_window_writeback.restype = ctypes.c_int
+    lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _cuda_library():
     from .cuda_build import load_library
 
-    kl = load_library("sgs_window_kernel")
-    lib = kl.lib
-    if lib.mcmc_window_extract.argtypes is None:  # else pointers are cut
-        lib.mcmc_window_extract.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.mcmc_window_extract.restype = ctypes.c_int
-        lib.mcmc_window_writeback.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.mcmc_window_writeback.restype = ctypes.c_int
-        lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    lib = load_library("sgs_window_kernel").lib
+    if lib.mcmc_window_extract.argtypes is None:
+        bind_library(lib)
+        lib.mcmc_window_writeback_in_window.argtypes = (
+            lib.mcmc_window_writeback.argtypes)
+        lib.mcmc_window_writeback_in_window.restype = ctypes.c_int
+        lib.mcmc_window_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.mcmc_window_info.restype = ctypes.c_int
     return lib
 
 
@@ -98,13 +113,31 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def window_extract(cons, fields, sx, sy, SB: int):
-    """Window extract (module docstring): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    if fields.device.type == "cpu":
-        return window_extract_reference(cons, fields, sx, sy, SB)
-    if fields.device.type != "cuda":
-        raise ValueError(f"no window extract kernel for {fields.device}")
+WINDOW_KERNELS = ("extract", "writeback_in_window", "writeback_sectors")
+
+
+def sgs_window_kernel_info(kernel: str, device=None) -> dict:
+    """The launch of one of ``WINDOW_KERNELS`` (the extract; the writeback
+    of the window's own cells; the full-sector writeback, which the
+    dispatcher takes where W % 8 == 0) as the CUDA runtime reports it on
+    the card: threads a CTA, registers and local (spill) bytes a thread,
+    resident CTAs a multiprocessor.  Each launch runs one CTA per (chain,
+    plane)."""
+    lib = _cuda_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device("cuda" if device is None
+                                        else device)):
+        _raise_on(lib, lib.mcmc_window_info(WINDOW_KERNELS.index(kernel),
+                                            ctypes.addressof(out)),
+                  "window info")
+    return dict(zip(("threads", "registers", "local_bytes",
+                     "resident_ctas_per_sm"), list(out)))
+
+
+def launch_extract(fn, cons, fields, sx, sy, SB: int):
+    """Check CUDA operands and launch the extract entry point ``fn`` (this
+    library's, or another checkout's in ``ab_window_kernels.py``) on the
+    current stream; returns the (N, NP + NS, SB, SB) windows."""
     N, NS, H, W = fields.shape
     NP = cons.shape[0]
     dev = fields.device
@@ -114,14 +147,45 @@ def window_extract(cons, fields, sx, sy, SB: int):
     _check("sy", sy, torch.int32, (N,), dev)
     if not 0 < SB <= min(H, W):
         raise ValueError(f"window size {SB} does not fit the {H}x{W} grid")
-    lib = _cuda_library()
     out = torch.empty((N, NP + NS, SB, SB), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.mcmc_window_extract(
-            cons.data_ptr(), fields.data_ptr(), sx.data_ptr(), sy.data_ptr(),
-            out.data_ptr(), N, NP, NS, H, W, SB, stream)
-    _raise_on(lib, err, "window extract")
+        err = fn(cons.data_ptr(), fields.data_ptr(), sx.data_ptr(),
+                 sy.data_ptr(), out.data_ptr(), N, NP, NS, H, W, SB, stream)
+    _raise_on(_cuda_library(), err, "window extract")
+    return out
+
+
+def launch_writeback(fn, fields, new_w, sx, sy, write):
+    """Check CUDA operands and launch the writeback entry point ``fn``
+    (as ``launch_extract``) on the current stream, in place."""
+    N, NS, H, W = fields.shape
+    SB = new_w.shape[-1]
+    dev = fields.device
+    _check("fields", fields, torch.float32, None, dev)
+    _check("new_w", new_w, torch.float32, (N, NS, SB, SB), dev)
+    _check("sx", sx, torch.int32, (N,), dev)
+    _check("sy", sy, torch.int32, (N,), dev)
+    _check("write", write, torch.bool, (N,), dev)
+    if not 0 < SB <= min(H, W):
+        raise ValueError(f"window size {SB} does not fit the {H}x{W} grid")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(fields.data_ptr(), new_w.data_ptr(), sx.data_ptr(),
+                 sy.data_ptr(), write.data_ptr(), N, NS, H, W, SB, stream)
+    _raise_on(_cuda_library(), err, "window writeback")
+    return fields
+
+
+def window_extract(cons, fields, sx, sy, SB: int):
+    """Window extract (module docstring): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if fields.device.type == "cpu":
+        return window_extract_reference(cons, fields, sx, sy, SB)
+    if fields.device.type != "cuda":
+        raise ValueError(f"no window extract kernel for {fields.device}")
+    out = launch_extract(_cuda_library().mcmc_window_extract, cons, fields,
+                         sx, sy, SB)
     window_extract.launches += 1
     return out
 
@@ -133,23 +197,8 @@ def window_writeback(fields, new_w, sx, sy, write):
         return window_writeback_reference(fields, new_w, sx, sy, write)
     if fields.device.type != "cuda":
         raise ValueError(f"no window writeback kernel for {fields.device}")
-    N, NS, H, W = fields.shape
-    SB = new_w.shape[-1]
-    dev = fields.device
-    _check("fields", fields, torch.float32, None, dev)
-    _check("new_w", new_w, torch.float32, (N, NS, SB, SB), dev)
-    _check("sx", sx, torch.int32, (N,), dev)
-    _check("sy", sy, torch.int32, (N,), dev)
-    _check("write", write, torch.bool, (N,), dev)
-    if not 0 < SB <= min(H, W):
-        raise ValueError(f"window size {SB} does not fit the {H}x{W} grid")
-    lib = _cuda_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.mcmc_window_writeback(
-            fields.data_ptr(), new_w.data_ptr(), sx.data_ptr(),
-            sy.data_ptr(), write.data_ptr(), N, NS, H, W, SB, stream)
-    _raise_on(lib, err, "window writeback")
+    launch_writeback(_cuda_library().mcmc_window_writeback, fields, new_w,
+                     sx, sy, write)
     window_writeback.launches += 1
     return fields
 

@@ -159,9 +159,11 @@ class MultiChainSampler:
 
         Iteration 0 records the initial state (reference loop semantics);
         ``segment_callback(cumulative_iter, states, traces_np)`` fires after
-        each segment.  ``progress`` redraws the reference's per-chain
-        progress block (``utils/progress.py``) after each segment.  Returns
-        (states, traces) with chain-major numpy traces of length n_iter.
+        each segment, the first carrying the initial row; at ``n_iter = 1``
+        it fires once, with that row and an empty segment.  ``progress``
+        redraws the reference's per-chain progress block
+        (``utils/progress.py``) after each segment.  Returns (states,
+        traces) with chain-major numpy traces of length n_iter.
         """
         n_iter = int(n_iter)
         if n_iter < 1:
@@ -169,19 +171,23 @@ class MultiChainSampler:
                              "the initial state)")
         renderer = (MultiChainProgress(self.n_chains, n_iter) if progress
                     else None)
-        collected = [self._init_row(states)]
+        init_np = self._init_row(states)
+        collected = []
         remaining = n_iter - 1
         done = 1
-        while remaining > 0:
+        first = True
+        while remaining > 0 or first:
             n = min(int(segment_size), remaining)
-            states, traces = self.run_segment(states, n)
-            traces_np = {k: v.cpu().numpy() for k, v in traces.items()}
-            if done == 1:
-                traces_np = {k: np.concatenate([collected[0][k], v])
-                             for k, v in traces_np.items()}
-                collected[0] = traces_np
+            if n > 0:
+                states, traces = self.run_segment(states, n)
+                traces_np = {k: v.cpu().numpy() for k, v in traces.items()}
             else:
-                collected.append(traces_np)
+                traces_np = {k: v[:0] for k, v in init_np.items()}
+            if first:  # the initial row travels with the first segment
+                traces_np = {k: np.concatenate([init_np[k], v])
+                             for k, v in traces_np.items()}
+                first = False
+            collected.append(traces_np)
             remaining -= n
             done += n
             if renderer is not None:

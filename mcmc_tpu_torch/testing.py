@@ -39,3 +39,27 @@ def edge_window_operands(consts, fields, sizes, n=None, seed=0):
     stacked[7, [0, H - 2, 2], [W - 2, 0, W // 2]] = 1.0
     fields = fields[:1].expand(n, -1, -1, -1).contiguous()
     return torch.as_tensor(stacked, device=dev), fields, geom, len(cases)
+
+
+def sgs_window_operands(H, W, SB, n, device, seed=1, NP=10, NS=4):
+    """Operands of the SGS window extract and writeback on an (H, W) grid:
+    NP const planes and n chains' NS state planes of normals, window
+    starts anywhere in [0, H - SB] x [0, W - SB] with the first four
+    chains on the four clamped corners, new windows, and a write mask
+    mixing True (chain 0) and False (chain 1).  Returns (cons, fields, sx,
+    sy, new_w, write)."""
+    from .utils.rng import make_generator
+
+    gen = make_generator(seed, device)
+    cons = torch.randn((NP, H, W), generator=gen, device=device)
+    fields = torch.randn((n, NS, H, W), generator=gen, device=device)
+    sx = torch.randint(0, H - SB + 1, (n,), generator=gen, device=device,
+                       dtype=torch.int32)
+    sy = torch.randint(0, W - SB + 1, (n,), generator=gen, device=device,
+                       dtype=torch.int32)
+    sx[:4] = torch.tensor([0, H - SB, 0, H - SB], dtype=torch.int32)
+    sy[:4] = torch.tensor([0, W - SB, W - SB, 0], dtype=torch.int32)
+    new_w = torch.randn((n, NS, SB, SB), generator=gen, device=device)
+    write = torch.rand((n,), generator=gen, device=device) < 0.5
+    write[:2] = torch.tensor([True, False])
+    return cons, fields, sx, sy, new_w, write

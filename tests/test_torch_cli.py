@@ -143,6 +143,19 @@ def test_sgs_resume_is_bitwise_an_uninterrupted_run(tmp_path):
             "SmallScaleChain" / "checkpoint_16.npz").exists()
 
 
+@pytest.mark.parametrize("family", ["crf", "sgs"])
+def test_one_iteration_run(tmp_path, family):
+    """``farm.n_iter: 1`` records the initial state alone: one-row
+    histories, no step taken, the bed as it started."""
+    _write_dataset(tmp_path)
+    cfg = _crf_config(n_iter=1) if family == "crf" else _sgs_config(1, 4)
+    hist = "hist.npz" if family == "crf" else "run_hist.npz"
+    assert _main(_write_config(tmp_path, cfg)) == 0
+    with np.load(tmp_path / hist) as h:
+        assert h["loss"].shape == (2, 1) and np.isfinite(h["loss"]).all()
+        assert not h["steps"].any() and np.isnan(h["blocks_used"]).all()
+
+
 def test_dry_run_validates_without_sampling(tmp_path, capsys):
     _write_dataset(tmp_path)
     cfg_path = _write_config(tmp_path, _crf_config())

@@ -25,14 +25,17 @@ from mcmc_tpu_torch.ops.covariance import eval_mixture_static
 from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
 from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
                                              batched_normal_reference)
-from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+from mcmc_tpu_torch.ops.sgs_window_kernel import (WINDOW_KERNELS,
+                                                  sgs_window_kernel_info,
+                                                  window_extract,
                                                   window_extract_reference,
                                                   window_writeback,
                                                   window_writeback_reference)
 from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
                                               fused_window_update_reference,
                                               window_kernel_info)
-from mcmc_tpu_torch.testing import edge_window_operands
+from mcmc_tpu_torch.testing import (edge_window_operands,
+                                    sgs_window_operands)
 from mcmc_tpu_torch.utils.rng import make_generator
 from tests.torch_helpers import (assert_delta_close, block_losses,
                                  small_chain, small_problem, small_sgs_chain)
@@ -197,25 +200,23 @@ def _sgs_step_operands(device, n=N, seed=4, vario=None):
 
 
 @pytest.mark.cuda
-def test_window_extract_and_writeback_kernels_bitwise(cuda_device):
-    H, W, SB, NS = 64, 200, 20, 4
-    gen = make_generator(1, cuda_device)
-    cons = torch.randn((10, H, W), generator=gen, device=cuda_device)
-    fields = torch.randn((N, NS, H, W), generator=gen, device=cuda_device)
-    sx = torch.randint(0, H - SB + 1, (N,), generator=gen,
-                       device=cuda_device, dtype=torch.int32)
-    sy = torch.randint(0, W - SB + 1, (N,), generator=gen,
-                       device=cuda_device, dtype=torch.int32)
-    sx[:4] = torch.tensor([0, H - SB, 0, H - SB], dtype=torch.int32)
-    sy[:4] = torch.tensor([0, W - SB, W - SB, 0], dtype=torch.int32)
+@pytest.mark.parametrize("H,W,SB", [
+    (64, 200, 20), (64, 200, 64), (512, 512, 36), (512, 512, 512),
+    (45, 67, 7), (45, 67, 37), (45, 67, 45), (45, 64, 37)])
+def test_window_extract_and_writeback_kernels_bitwise(cuda_device, H, W, SB):
+    """Both kernels bitwise against their plain versions: windows in one
+    pass (SB^2 = 49, 400, 1,296) and in many (512^2), the window as large
+    as the grid, the four clamped corners, a mixed write mask; W % 8 == 0
+    takes the full-sector writeback (odd SB too), W = 67 the one within
+    the window; then a fields tensor whose base is not 32-byte aligned,
+    which takes the writeback within the window whatever W."""
+    cons, fields, sx, sy, new_w, write = sgs_window_operands(
+        H, W, SB, N, cuda_device)
     before = window_extract.launches
     got = window_extract(cons, fields, sx, sy, SB)
     assert window_extract.launches == before + 1
     assert torch.equal(got, window_extract_reference(cons, fields, sx, sy,
                                                      SB))
-    new_w = torch.randn((N, NS, SB, SB), generator=gen, device=cuda_device)
-    write = torch.rand((N,), generator=gen, device=cuda_device) < 0.5
-    write[:2] = torch.tensor([True, False])
     k, p = fields.clone(), fields.clone()
     before = window_writeback.launches
     window_writeback(k, new_w, sx, sy, write)
@@ -224,6 +225,21 @@ def test_window_extract_and_writeback_kernels_bitwise(cuda_device):
     assert window_writeback.launches == before + 1
     assert torch.equal(k, p)
     assert torch.equal(k[~write], fields[~write])
+    k2 = torch.empty(fields.numel() + 1, device=cuda_device)[1:]
+    k2 = k2.view(fields.shape).copy_(fields)
+    assert k2.data_ptr() % 32 != 0
+    window_writeback(k2, new_w, sx, sy, write)
+    assert torch.equal(k2, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", WINDOW_KERNELS)
+def test_window_kernels_launch(cuda_device, kernel):
+    """Each window kernel's launch: 128 threads a CTA, no spills, sixteen
+    CTAs (2,048 threads) resident on a multiprocessor."""
+    info = sgs_window_kernel_info(kernel)
+    assert info["threads"] == 128 and info["local_bytes"] == 0
+    assert info["resident_ctas_per_sm"] == 16
 
 
 @pytest.mark.cuda

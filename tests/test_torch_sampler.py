@@ -105,14 +105,59 @@ def test_same_seed_same_traces(chains, run):
 
 
 def test_single_iteration_records_only_the_initial_state(chains):
+    """At n_iter = 1 the callback fires once, as the JAX sampler's does,
+    with the initial row and an empty segment."""
     sampler = MultiChainSampler(chains[1], 2, device="cpu")
     states = sampler.init(seeds=1)
-    _, tr = sampler.run(states, 1, progress=False)
+    calls = []
+    _, tr = sampler.run(states, 1, progress=False,
+                        segment_callback=lambda done, st, t: calls.append(
+                            (done, {k: v.shape for k, v in t.items()})))
     assert tr["loss"].shape == (2, 1)
     np.testing.assert_array_equal(tr["loss"][:, 0],
                                   (states.loss_mc + states.loss_data).numpy())
+    assert len(calls) == 1 and calls[0][0] == 1
+    assert calls[0][1]["loss"] == (1, 2)
+    assert calls[0][1]["samples"] == (1, 2, tr["samples"].shape[-1])
     with pytest.raises(ValueError, match="n_iter"):
         sampler.run(states, 0)
+
+
+@pytest.mark.parametrize("family", ["crf", "sgs"])
+def test_one_iteration_farm_matches_jax(tmp_path, family):
+    """Both packages' drivers at n_iter = 1, each in a fresh run
+    directory: one-row traces holding the initial state, row 0's loss_mc
+    equal to rtol 1e-5 (the JAX farm takes a seed list, the port one int
+    master seed)."""
+    from mcmc_tpu import drivers as jdrivers
+    from mcmc_tpu_torch import drivers as tdrivers
+    from tests.test_torch_chain_sgs import chain_pair
+
+    p = make_synthetic_problem(H=48, W=48)
+    kw = dict(n_chains=2, n_iter=1, segment_size=5, progress=False,
+              quiet=True)
+    if family == "crf":
+        jchain = _jax_chain(p, "crf_matern")
+        want = jdrivers.large_scale_chain_farm(
+            jchain, rng_seeds=[3, 4], output_path=tmp_path / "jax", **kw)
+        got = tdrivers.large_scale_chain_farm(
+            _port_chain(p, jchain), rng_seeds=3,
+            output_path=tmp_path / "port", device="cpu", **kw)
+    else:
+        jchain, pchain = chain_pair(p, "transform_detrend", neighbors=16,
+                                    radius=10e3)
+        want = jdrivers.small_scale_chain_farm(
+            jchain, ssc_rng_seeds=[3, 4], output_path=tmp_path / "jax", **kw)
+        got = tdrivers.small_scale_chain_farm(
+            pchain, ssc_rng_seeds=3, output_path=tmp_path / "port",
+            device="cpu", **kw)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for i in (1, 2, 3, 4, 6):  # loss_mc, loss_data, loss, steps, blocks
+            assert g[i].shape[0] == w[i].shape[0] == 1
+        assert not g[4].any() and np.isnan(g[6]).all()
+        np.testing.assert_allclose(g[1][0], w[1][0], rtol=1e-5)
+        np.testing.assert_array_equal(g[0].shape, w[0].shape)
 
 
 def test_init_options(chains):

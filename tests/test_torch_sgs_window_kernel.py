@@ -1,8 +1,8 @@
 """The plain versions of the SGS window extract and writeback (what the
 CUDA kernels compute) against the JAX package's Pallas kernels in
 interpret mode: pure data movement, so BITWISE.  Window starts cover all
-four clamped edges, the grid is not square, and the write mask mixes
-True and False."""
+four clamped edges, the grid is not square (45 x 67 with an odd SB = 37
+too), and the write mask mixes True and False."""
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +32,8 @@ def _data(H, W, SB, seed=0):
     return cons, fields, sx, sy
 
 
-@pytest.mark.parametrize("H,W,SB", [(64, 256, 20), (48, 72, 36), (40, 40, 40)])
+@pytest.mark.parametrize("H,W,SB", [(64, 256, 20), (48, 72, 36), (40, 40, 40),
+                                    (45, 67, 37)])
 def test_extract_bitwise(H, W, SB):
     cons, fields, sx, sy = _data(H, W, SB)
     fn = make_window_extract(H, W, SB, NP, NS, interpret=True)
@@ -48,7 +49,7 @@ def test_extract_bitwise(H, W, SB):
     assert window_extract.launches == before  # the CPU runs no kernel
 
 
-@pytest.mark.parametrize("H,W,SB", [(64, 256, 20), (48, 72, 36)])
+@pytest.mark.parametrize("H,W,SB", [(64, 256, 20), (48, 72, 36), (45, 67, 37)])
 def test_writeback_bitwise(H, W, SB):
     _, fields, sx, sy = _data(H, W, SB, seed=1)
     rng = np.random.default_rng(2)
