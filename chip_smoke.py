@@ -31,7 +31,8 @@ line or more each:
 6. SGS kernels vs plain versions: 10 steps at the SGS headline (512
    chains on the same 512 x 512 grid), the state advancing on the
    kernels' results: window extract and writeback bitwise, the inverse
-   LUT bitwise (or within 1 ulp, counted), the mixture CG within rtol /
+   LUT bitwise (or within 1 ulp, counted; its launch and an empty
+   kernel's time on the same grid), the mixture CG within rtol /
    atol 2e-4 and, run to convergence, within 2e-3 of a float64 solve for
    a sample of chains, and a plain step from the same state and draws
    flipping at most 1e-3 of the MH decisions; both times per launch; each
@@ -72,7 +73,28 @@ line or more each:
    400 iterations, then resumed to 600, bitwise equal in traces and final
    beds to an uninterrupted 600, the given-Sigma CG once per step, and
    ``--info`` listing the checkpoint; (b) the CRF farm at 768 chains
-   through ``drivers.large_scale_chain_farm``, 300 iterations.
+   through ``drivers.large_scale_chain_farm``, 300 iterations;
+12. per-chain draws (``[draws]``, between phases 9 and 10): the draw
+   kernel of seed-listed farms against its plain version on the CRF
+   headline's draw plan (768 chains) and the SGS headline's (512 chains,
+   6,400 normals a chain), and the keyed noise entry at 768 x 160 x 41,
+   over 10 step counters (one past 2^32), bitwise; both times per launch
+   beside the bound and ``torch.rand`` / ``torch.randn`` of the same
+   shape;
+13. chain independence (``[independence]``): at each headline a farm
+   seeded with a list and a 1-chain farm seeded with its first seed, 50
+   steps on the kernels: chain 0's draws bitwise equal, its loss traces
+   printed side by side with the first step where they differ, and
+   whether cuFFT gives chain 0 the same bits in a batch as alone;
+14. seeding and launches (``[seeds]``): an int-seeded and a list-seeded
+   farm of each family in turn (int, list, list, int): chain-it/s (no
+   claim) and device ops a step, the list-seeded step making no more
+   than the int-seeded one; the list-seeded runs are the draw kernel's
+   main path, one launch a step;
+15. the entry point with a seed list (``[entry-list]``, after phase 11):
+   the Matérn SGS headline through ``mcmc_tpu_torch.cli.main`` with a
+   512-seed ``rng_seeds`` list, 400 iterations resumed to 600, bitwise
+   equal to an uninterrupted 600, one draw-kernel launch a step.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -80,10 +102,12 @@ proposals with block menu 50-80 in 5 steps; and the SGS chain at the
 reference's production settings (blocks 5-20, 48 neighbours within
 30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
 10 km).  The second-to-last line is a JSON object describing the seven
-kernels: each one's launches on the path that runs it (counts set to 0
-just before the path and read just after), its error against its plain
-version, its time, the plain version's, the least time the card could
-take for the same work (``bound_ms``: the bytes the function must move at
+kernels and the per-chain draw kernel: each one's launches on the path
+that runs it (counts set to 0 just before the path and read just
+after; the draw kernel's over phase 14's SGS list-seeded runs, whose
+draw plan its times are from), its error against its plain version, its
+time, the plain version's, the least time the card could take for the
+same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger)
 and, where one PyTorch call computes the same function, that call's
 time.  The last line is the JSON contract ``{"ok": true, "device": ...}``.
@@ -115,7 +139,7 @@ SGS_PARITY_STEPS = 10
 SGS_SEGMENTS = 3
 SGS_SEGMENT = 400
 KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
-                  "lut_kernel", "noise_kernel")
+                  "lut_kernel", "noise_kernel", "chain_draws")
 NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
 K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
@@ -124,6 +148,10 @@ WINDOW_EDGE = ((45, 67, 37), (45, 64, 37))  # [sgs-window-edge]: H, W, SB
 ENTRY_SGS_ITERS = (400, 600)  # phase 11a: run, then resume to
 ENTRY_SEGMENT = 200
 ENTRY_CRF_ITERS = 300
+DRAW_STEPS = 10          # [draws]: recorded steps of the per-chain draws
+SEED_STEPS = 50          # [independence]: steps of each pair of farms
+SEED_RATE_STEPS = {"crf": 300, "sgs": 200}  # [seeds]: timed steps a run
+ENTRY_LIST_ITERS = (400, 600)  # [entry-list]: run, then resume to
 ROOT = Path(__file__).resolve().parent
 # (wrapper, source under mcmc_tpu_torch/ops/csrc, the Pallas kernel it
 # replaces): every function of the JAX package that reaches pallas_call
@@ -138,6 +166,9 @@ KERNELS = (
     ("masked_cg", "cg_kernel.cu", "mcmc_tpu/ops/cg_kernel.py:184"),
     ("lut_interp", "lut_kernel.cu", "mcmc_tpu/ops/lut_kernel.py:97"),
     ("batched_normal", "noise_kernel.cu", "mcmc_tpu/ops/noise_kernel.py:80"),
+    # the port's own kernel: the seed-listed farms' per-chain draws, which
+    # the JAX package makes with jax.random (no pallas_call) at this site
+    ("chain_draws", "chain_draws.cu", "mcmc_tpu/models/chain_sgs.py:874"),
 )
 
 # kernel vs plain version bounds
@@ -918,9 +949,30 @@ def phase_sgs_kernels_vs_plain(chain, card):
               flush=True)
     _window_launches(N, consts.stacked.shape[0], state.fields.shape[1], SB,
                      out, card)
+    _lut_launch_and_floor(ops["lut"], out["lut"], card)
     _cg_launch_and_split("sgs-parity", mix_masked_cg, ops["cg"], K, True,
                          out["cg"]["ms"], card)
     return out
+
+
+def _lut_launch_and_floor(recorded, row, card):
+    """The LUT kernel's launch as the CUDA runtime reports it, and the
+    time of an empty kernel on the same grid, timed as the kernel was
+    (the floor any launch of that grid pays)."""
+    from mcmc_tpu_torch.ops.lut_kernel import empty_launch, lut_kernel_info
+
+    info = lut_kernel_info(recorded[0][0])
+    floor_ms = float(np.mean([_time_ops(
+        lambda: empty_launch(info["ctas"]), [()] * len(recorded))
+        for _ in range(2)]))
+    print(f"[sgs-parity] lut launch: {info['ctas']} CTAs x "
+          f"{info['threads']} threads, {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes, "
+          f"{info['resident_ctas_per_sm']} resident CTAs an SM | an empty "
+          f"kernel on the same grid {floor_ms:.4f} ms: the kernel "
+          f"{row['ms']:.4f} ms is {row['ms'] / floor_ms:.2f}x the floor, "
+          f"{row['ms'] / row['bound_ms']:.2f}x its {row['bound_ms']:.4f} ms "
+          f"bound ({card}; CUDA events)", flush=True)
 
 
 def _window_launches(N, NP, NS, SB, out, card):
@@ -1161,7 +1213,8 @@ def phase_sgs_main_path(chain, p, card):
                            "full-grid recompute")
     if tuple(loss.shape) != (SGS_CHAINS, n_iter):
         raise RuntimeError(f"loss trace shape {loss.shape}")
-    busy_share(sampler, states, card, elapsed / steps * 1e6, top=10)
+    busy_share(sampler, states, card, elapsed / steps * 1e6, top=10,
+               watch=("lut_kernel",))
     return launches
 
 
@@ -1371,20 +1424,27 @@ def _write_dataset(p, path):
         resolution=p["resolution"])
 
 
-def _sgs_config(n_iter, out):
-    """``make_spherical_chain``'s configuration as a CLI config."""
+SPHERICAL = {"vtype": "Spherical", "range": 10e3, "sill": 1.0,
+             "nugget": 0.0}
+MATERN = {"vtype": "Matern", "range": 10e3, "sill": 1.0, "nugget": 0.0,
+          "smoothness": 1.3}
+
+
+def _sgs_config(n_iter, out, variogram=SPHERICAL, seeds=0):
+    """``make_spherical_chain``'s configuration as a CLI config (or, with
+    ``MATERN``, ``make_sgs_chain``'s), seeded by ``seeds``."""
     return {
         "family": "sgs", "dataset": "dataset.npz",
         "update_region": {"in_region": True, "mask": "region"},
         "loss": {"sigma_mc": SIGMA_MC, "mass_conv_in_region": True},
         "sgs": {
-            "variogram": {"vtype": "Spherical", "range": 10e3, "sill": 1.0,
-                          "nugget": 0.0},
+            "variogram": variogram,
             "params": {"num_neighbors": 48, "search_radius": 30e3},
             "blocks": {"min_x": 5, "max_x": 20, "min_y": 5, "max_y": 20},
             "trend": {"gaussian_sigma": 10.0},
             "normal_transform": {"n_quantiles": 1000}},
-        "farm": {"n_chains": SGS_CHAINS, "n_iter": n_iter, "rng_seeds": 0,
+        "farm": {"n_chains": SGS_CHAINS, "n_iter": n_iter,
+                 "rng_seeds": seeds,
                  "output_path": out, "segment_size": ENTRY_SEGMENT,
                  "checkpoint_every": ENTRY_SGS_ITERS[0]},
         "save": {"final_beds": f"{out}_beds.npy",
@@ -1397,7 +1457,6 @@ def phase_entry_point(p, card):
     bitwise with an uninterrupted run; the CRF farm through the driver."""
     import torch
 
-    from mcmc_tpu_torch import cli
     from mcmc_tpu_torch.drivers import large_scale_chain_farm
     from mcmc_tpu_torch.ops.cg_kernel import masked_cg, mix_masked_cg
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
@@ -1411,15 +1470,7 @@ def phase_entry_point(p, card):
         _write_dataset(p, tmp / "dataset.npz")
 
         def cli_run(n_iter, out, *extra):
-            cfg = tmp / f"{out}.json"
-            cfg.write_text(json.dumps(_sgs_config(n_iter, out)))
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main([str(cfg), "--quiet", "--device", DEVICE,
-                               *extra])
-            if rc != 0:
-                raise RuntimeError(f"the CLI returned {rc}")
-            return buf.getvalue()
+            return _cli_run(tmp, _sgs_config(n_iter, out), *extra)
 
         kernels = (window_extract, masked_cg, lut_interp, window_writeback)
         for k in kernels + (mix_masked_cg,):
@@ -1496,10 +1547,392 @@ def phase_entry_point(p, card):
     return launches["masked_cg"]
 
 
-def busy_share(sampler, states, card, step_us, n_steps=50, top=6):
+def _seed_list(n, first=1000):
+    """A per-chain seed list: ``n`` consecutive ints."""
+    return list(range(first, first + n))
+
+
+def _family(chain):
+    """(static, consts, draw, update, initial state of n chains) of a
+    CRF or SGS chain on the card, ``update(consts, state, draws)`` the
+    step's MH update on drawn values, as its ``make_step`` applies it."""
+    from mcmc_tpu_torch.models import chain_crf as crf
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+
+    static, consts = chain.build(DEVICE)
+    if isinstance(chain, sgs.ChainSGS):
+        kernel = sgs.make_sgs_kernel(static)
+
+        def update(consts, state, d):
+            return kernel(consts, state, d.cx, d.cy, d.bsx, d.bsy, d.noise,
+                          d.drop_u, d.u)
+
+        def init(n):
+            return sgs.sgs_init_state(chain._initial_detrended, consts,
+                                      chain._initial_z, True, n)
+
+        return static, consts, sgs.draw, update, init
+    kernel = crf.make_kernel(static)
+
+    def update(consts, state, d):
+        cx = consts.region_cells[d.cidx, 0]
+        cy = consts.region_cells[d.cidx, 1]
+        return kernel(consts, state, crf.propose(static, consts, d),
+                      d.size_idx, d.scale, cx, cy, d.u)
+
+    def init(n):
+        return crf.init_state(chain.initial_bed, consts, n)
+
+    return static, consts, crf.draw, update, init
+
+
+def _draw_fields(d):
+    """The tensors of a step's draws, by name."""
+    return {f.name: getattr(d, f.name) for f in dataclasses.fields(d)
+            if getattr(d, f.name) is not None}
+
+
+def _plan_bytes(n_chains, plan):
+    """Bytes one draw-kernel launch must move: each chain's key and the
+    step read, every drawn value written once (4 bytes a uniform or
+    normal, 8 an index)."""
+    values = sum(e.count * (8 if e.kind == "index" else 4)
+                 for e in plan.entries)
+    return float(n_chains * (8 + values) + 8)
+
+
+def phase_draws_vs_plain(crf_chain, sgs_chain, card):
+    """The per-chain draw kernel against its plain version on each
+    headline's draw plan (768 CRF chains, 512 SGS chains), and the keyed
+    noise entry at 768 x 160 x 41, over DRAW_STEPS steps' counters:
+    every value bitwise; both times per launch beside the bound and one
+    PyTorch call of the same shape."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_crf as crf
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.chain_draws import (SLOTS, cached_plan,
+                                                chain_draws,
+                                                chain_draws_reference)
+    from mcmc_tpu_torch.ops.noise_kernel import (
+        batched_normal_keyed, batched_normal_keyed_reference)
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    dev = torch.device(DEVICE)
+    steps = [torch.tensor([t], dtype=torch.int64, device=dev)
+             for t in range(DRAW_STEPS - 1)] + [
+        torch.tensor([(1 << 32) + 5], dtype=torch.int64, device=dev)]
+    rows = {}
+    for family, chain, n in (("crf", crf_chain, N_CHAINS),
+                             ("sgs", sgs_chain, SGS_CHAINS)):
+        static, consts = chain.build(dev)
+        entries = (crf.draw_plan_entries(static) if family == "crf"
+                   else sgs.draw_plan_entries(static, consts))
+        plan = cached_plan(entries)
+        keys = PerChainStreams.from_seeds(_seed_list(n), dev).keys
+        n_diff = n_values = 0
+        err = 0.0
+        for step in steps:
+            got = plan.views(*chain_draws(keys, step, plan))
+            want = plan.views(*chain_draws_reference(keys, step, plan))
+            for name, w in want.items():
+                n_diff += int((got[name] != w).sum())
+                n_values += w.numel()
+                err = max(err, float((got[name].double()
+                                      - w.double()).abs().max()))
+        recorded = [(keys, step) for step in steps]
+        plain_ms, ms = _pair_times(
+            lambda k, t: chain_draws_reference(k, t, plan),
+            lambda k, t: chain_draws(k, t, plan), recorded)
+        lib_gen = torch.Generator(device=dev)
+        lib_gen.manual_seed(23)
+        library_ms = _time_ops(
+            lambda: torch.rand((n, plan.floats), generator=lib_gen,
+                               device=dev), [()] * DRAW_STEPS)
+        moved = _plan_bytes(n, plan)
+        bound_ms, bound_by = _bound(moved)
+        print(f"[draws] {family} plan ({', '.join(f'{e.name} {e.kind} x'
+                                               f'{e.count}'
+                                               for e in plan.entries)}): "
+              f"{n} chains, {plan.calls} Philox calls a chain, "
+              f"{DRAW_STEPS} steps: {n_diff} of {n_values} values not "
+              f"bitwise equal to the plain version (bound 0) | per launch: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.rand of "
+              f"({n}, {plan.floats}) {library_ms:.4f} ms | bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB) = "
+              f"{bound_ms / ms:.3f} of the kernel's time ({card}; CUDA "
+              f"events)", flush=True)
+        if n_diff:
+            raise RuntimeError(f"the {family} draw kernel disagrees with "
+                               "its plain version")
+        rows[family] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+
+    # the keyed noise entry at the CRF headline's half-spectrum shape
+    B = crf_chain.build(dev)[0].rf.B
+    shape = (N_CHAINS, 2 * B, B // 2 + 1)
+    keys = PerChainStreams.from_seeds(_seed_list(N_CHAINS), dev).keys
+    slot = SLOTS["spectrum"]
+    n_diff = 0
+    for step in steps:
+        n_diff += int((batched_normal_keyed(keys, step, slot, *shape[1:])
+                       != batched_normal_keyed_reference(
+                           keys, step, slot, *shape[1:])).sum())
+    recorded = [(keys, step, slot) + shape[1:] for step in steps]
+    plain_ms, ms = _pair_times(batched_normal_keyed_reference,
+                               batched_normal_keyed, recorded)
+    lib_gen = torch.Generator(device=dev)
+    lib_gen.manual_seed(24)
+    library_ms = _time_ops(
+        lambda: torch.randn(shape, generator=lib_gen, device=dev),
+        [()] * DRAW_STEPS)
+    bound_ms, bound_by = _bound(4.0 * np.prod(shape) + 8 * N_CHAINS + 8)
+    print(f"[draws] keyed noise {shape}, {DRAW_STEPS} steps: {n_diff} of "
+          f"{DRAW_STEPS * int(np.prod(shape))} values not bitwise equal to "
+          f"the plain version (bound 0) | per launch: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.randn of the same shape "
+          f"{library_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} = "
+          f"{bound_ms / ms:.3f} of the kernel's time ({card}; CUDA events)",
+          flush=True)
+    if n_diff:
+        raise RuntimeError("the keyed noise entry disagrees with its plain "
+                           "version")
+    return rows
+
+
+def phase_independence(crf_chain, sgs_chain, card):
+    """At each headline, a farm seeded with a list and a 1-chain farm
+    seeded with its first seed, SEED_STEPS steps each on the kernels:
+    chain 0's draws must be bitwise equal in the two; its loss traces are
+    printed side by side with the first step where they differ, and
+    cuFFT's C2R transform of chain 0's noise in a batch of N against a
+    batch of 1 says whether the FFT is batch-invariant."""
+    import torch
+
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    for family, chain, n in (("crf", crf_chain, N_CHAINS),
+                             ("sgs", sgs_chain, SGS_CHAINS)):
+        static, consts, draw, update, init = _family(chain)
+        seeds = _seed_list(n)
+        farms = {m: [PerChainStreams.from_seeds(seeds[:m], DEVICE), init(m),
+                     []] for m in (n, 1)}
+        n_diff = n_values = 0
+        noise0 = {}
+        for t in range(SEED_STEPS):
+            drawn = {m: draw(f[0], static, consts, m)
+                     for m, f in farms.items()}
+            a, b = _draw_fields(drawn[n]), _draw_fields(drawn[1])
+            for name in a:
+                n_diff += int((a[name][0] != b[name][0]).sum())
+                n_values += b[name][0].numel()
+            if t == 0:
+                noise0 = {m: d.noise for m, d in drawn.items()}
+            for m, f in farms.items():
+                f[1], tr = update(consts, f[1], drawn[m])
+                f[2].append(tr["loss"][0])
+                f[0].advance()
+        loss = {m: torch.stack(f[2]).cpu().numpy() for m, f in farms.items()}
+        same = loss[n] == loss[1]
+        first = int(np.argmin(same)) if not same.all() else None
+        fft_same = _fft_batch_invariant(family, static, consts, noise0, n)
+        rel = float(np.max(np.abs(loss[n] - loss[1]) / np.abs(loss[1])))
+        traces = ("equal at every step" if first is None else
+                  f"first differ after step {first + 1} (max rel "
+                  f"{rel:.3e})")
+        print(f"[independence] {family}: farm of {n} seeded "
+              f"{seeds[0]}..{seeds[-1]} against a farm of 1 seeded "
+              f"[{seeds[0]}], {SEED_STEPS} steps on the kernels: chain 0's "
+              f"draws {n_diff} of {n_values} values not bitwise equal "
+              f"(bound 0) | chain 0's loss traces {traces} | cuFFT C2R of "
+              f"chain 0's step-1 noise in a batch of {n} vs 1 bitwise "
+              f"equal: {fft_same} ({card})", flush=True)
+        for m in (n, 1):
+            print(f"[independence] {family} chain 0 loss, farm of {m}: "
+                  + json.dumps([float(v) for v in loss[m]]), flush=True)
+        if n_diff:
+            raise RuntimeError(f"the {family} farm's chain 0 draws depend "
+                               "on the other chains")
+        del farms
+
+
+def _fft_batch_invariant(family, static, consts, noise, n):
+    """Whether the family's first inverse FFT (the CRF proposal's irfft2,
+    the SGS unconditional draw's) gives chain 0 the same bits in a batch
+    of ``n`` as alone, on the same noise."""
+    import torch
+
+    from mcmc_tpu_torch.models.chain_sgs import halfspec_noise
+    from mcmc_tpu_torch.ops.spectral import spectral_field_from_noise
+
+    if family == "crf":
+        rf = static.rf
+        rx = torch.full((n,), 30e3, device=DEVICE)
+
+        def fft(z):
+            m = z.shape[0]
+            return spectral_field_from_noise(z, (rf.B, rf.B), rf.resolution,
+                                             rf.model_name, rx[:m], rx[:m],
+                                             rf.smoothness)
+    else:
+        NE = static.NE
+
+        def fft(z):
+            return torch.fft.irfft2(halfspec_noise(z[:, :NE * NE], NE)
+                                    * consts.embed_sqrt, s=(NE, NE))
+    return bool(torch.equal(fft(noise[n])[0], fft(noise[1])[0]))
+
+
+def phase_seed_rates(p, card):
+    """Device ops a step and chain-it/s of an int-seeded and a list-seeded
+    farm of each family at its headline, in turn int, list, list, int:
+    no claim, the host sets the pace.  The list-seeded runs are the draw
+    kernel's main path: its count (and the keyed noise entry's) is set to
+    0 just before each and read just after: one launch a step.  Returns
+    the draw kernel's launches over the SGS list-seeded runs, the family
+    whose draw plan its ``kernels`` row times."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                                 batched_normal_keyed)
+
+    launches = 0
+    for family, make, n in (("crf", make_chain, N_CHAINS),
+                            ("sgs", make_sgs_chain, SGS_CHAINS)):
+        steps = SEED_RATE_STEPS[family]
+        rates = {"int": [], "list": []}
+        ops = {}
+        for kind in ("int", "list", "list", "int"):
+            sampler = MultiChainSampler(make(p), n, device=DEVICE)
+            states = sampler.init(seeds=0 if kind == "int"
+                                  else _seed_list(n))
+            states, _ = sampler.run_segment(states, 20)  # warm
+            counts = (chain_draws, batched_normal_keyed, batched_normal)
+            for k in counts:
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, traces = sampler.run(states, steps + 1,
+                                         segment_size=steps, progress=False)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            got = [k.launches for k in counts]
+            want = ([0, 0, steps] if kind == "int" and family == "crf"
+                    else [0, 0, 0] if kind == "int"
+                    else [steps, steps if family == "crf" else 0, 0])
+            if got != want:
+                raise RuntimeError(f"{family} {kind}-seeded launches "
+                                   f"(draws, keyed noise, noise) {got}, "
+                                   f"expected {want}")
+            if kind == "list" and family == "sgs":
+                launches += got[0]
+            if not np.isfinite(traces["loss"]).all():
+                raise RuntimeError(f"non-finite {family} {kind}-seeded loss")
+            rates[kind].append(steps * n / elapsed)
+            if kind not in ops:
+                ops[kind] = busy_share(sampler, states, card,
+                                       elapsed / steps * 1e6, n_steps=20,
+                                       top=0, tag=f"seeds-{family}-{kind}")
+            del sampler, states
+            torch.cuda.empty_cache()
+        per_step = {k: (v or {}).get("ops_per_step") for k, v in ops.items()}
+        print(f"[seeds] {family}, {n} chains x {GRID}^2, {steps} steps a "
+              f"run: chain-it/s int-seeded {rates['int']}, list-seeded "
+              f"{rates['list']} (no claim: host-bound, runs in the order "
+              f"int, list, list, int) | device ops a step: int "
+              f"{per_step['int']}, list {per_step['list']} ({card})",
+              flush=True)
+        if (None not in per_step.values()
+                and per_step["list"] > per_step["int"]):
+            raise RuntimeError(f"the list-seeded {family} step makes more "
+                               "device launches than the int-seeded one")
+    return launches
+
+
+def _cli_run(tmp, cfg, *extra):
+    """``mcmc_tpu_torch.cli.main`` on ``cfg`` written into ``tmp``; its
+    standard output."""
+    from mcmc_tpu_torch import cli
+
+    path = tmp / f"{cfg['farm']['output_path']}.json"
+    path.write_text(json.dumps(cfg))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(path), "--quiet", "--device", DEVICE, *extra])
+    if rc != 0:
+        raise RuntimeError(f"the CLI returned {rc}")
+    return buf.getvalue()
+
+
+def phase_entry_seed_list(p, card):
+    """The SGS headline through ``python -m mcmc_tpu_torch``'s main with a
+    512-seed ``rng_seeds`` list: ENTRY_LIST_ITERS[0] iterations, resumed
+    to ENTRY_LIST_ITERS[1], bitwise against an uninterrupted run; one
+    draw-kernel launch a step."""
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.lut_kernel import lut_interp
+
+    first, total = ENTRY_LIST_ITERS
+    seeds = _seed_list(SGS_CHAINS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        _write_dataset(p, tmp / "dataset.npz")
+        kernels = (chain_draws, mix_masked_cg, lut_interp)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        for n_iter, out in ((first, "resumed"), (total, "resumed"),
+                            (total, "straight")):
+            _cli_run(tmp, _sgs_config(n_iter, out, MATERN, seeds))
+        elapsed = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        steps = (first - 1) + (total - first) + (total - 1)
+        same = {}
+        with np.load(tmp / "resumed_hist.npz") as a, \
+                np.load(tmp / "straight_hist.npz") as b:
+            for key in a.files:
+                same[key] = bool(np.array_equal(
+                    a[key], b[key], equal_nan=a[key].dtype.kind == "f"))
+            loss = a["loss"]
+        same["final_beds"] = bool(np.array_equal(
+            np.load(tmp / "resumed_beds.npy"),
+            np.load(tmp / "straight_beds.npy")))
+        ckpt = sorted(tmp.glob("resumed/**/checkpoint_*.npz"))
+        with np.load(ckpt[-1]) as z:
+            kind = json.loads(bytes(z["meta_json"]).decode())["rng_kind"]
+    print(f"[entry-list] SGS Matern headline, {SGS_CHAINS} chains x "
+          f"{GRID}^2 through python -m mcmc_tpu_torch with rng_seeds "
+          f"[{seeds[0]}, ..., {seeds[-1]}]: {first} iterations resumed to "
+          f"{total} and {total} straight in {elapsed:.1f} s with builds and "
+          f"checkpoints | checkpoint stream kind {kind!r} | resumed == "
+          f"uninterrupted, bitwise: {same} | loss mean "
+          f"{loss[:, 0].mean():.6e} -> {loss[:, -1].mean():.6e} | launches "
+          f"{launches} in {steps} steps ({card})", flush=True)
+    if not all(same.values()):
+        raise RuntimeError("the resumed list-seeded farm departs from the "
+                           "uninterrupted one")
+    if kind != "philox-per-chain":
+        raise RuntimeError(f"the checkpoint holds a {kind!r} stream")
+    if loss.shape != (SGS_CHAINS, total) or not np.isfinite(loss).all():
+        raise RuntimeError(f"list-seeded SGS traces {loss.shape}")
+    if not loss[:, -1].mean() < loss[:, 0].mean():
+        raise RuntimeError("the list-seeded SGS loss did not decrease")
+    if any(n != steps for n in launches.values()):
+        raise RuntimeError(f"kernel launches {launches} in {steps} steps")
+
+
+def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
+               watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
     against the profiled wall time and against ``step_us``, the main
-    path's wall time per step without the profiler."""
+    path's wall time per step without the profiler; the ``top`` kernels
+    by device time, and each kernel whose name holds a ``watch`` string.
+    Returns {"ops_per_step", "busy_us"} (None where the profiler recorded
+    no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1524,20 +1957,23 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6):
     busy_us = sum(dev_us(e) for e in events)
     per_step = sum(e.count for e in events) / n_steps
     if busy_us <= 0:
-        print("[profile] device busy share: not measured (the profiler "
+        print(f"[{tag}] device busy share: not measured (the profiler "
               "recorded no device time)", flush=True)
-        return
-    top = sorted(events, key=dev_us, reverse=True)[:top]
+        return None
+    ranked = sorted(events, key=dev_us, reverse=True)
+    shown = ranked[:top] + [e for e in ranked[top:]
+                            if any(w in e.key for w in watch)]
     busy = busy_us / n_steps
-    print(f"[profile] {n_steps} steps: {per_step:.0f} device ops/step, "
+    print(f"[{tag}] {n_steps} steps: {per_step:.0f} device ops/step, "
           f"device busy {busy:.1f} us/step | "
           f"profiled wall {wall_us / n_steps:.1f} us/step -> idle share "
           f"{1 - busy_us / wall_us:.3f} | unprofiled wall {step_us:.1f} "
           f"us/step -> idle share {1 - busy / step_us:.3f} ({card})",
           flush=True)
-    for e in top:
-        print(f"[profile]   {dev_us(e) / n_steps:9.1f} us/step  "
+    for e in shown:
+        print(f"[{tag}]   {dev_us(e) / n_steps:9.1f} us/step  "
               f"{e.count // n_steps:3d}/step  {e.key[:70]}", flush=True)
+    return {"ops_per_step": per_step, "busy_us": busy}
 
 
 def main():
@@ -1555,7 +1991,6 @@ def main():
     phase_sgs_window_edges(card)
     phase_cg_k96(p, card)
     sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
-    del sgs_chain
     for kernel, key in (("window_extract", "extract"),
                         ("window_writeback", "writeback"),
                         ("mix_masked_cg", "cg"), ("lut_interp", "lut")):
@@ -1563,10 +1998,14 @@ def main():
         launches[kernel] = sgs_launches[kernel]
     rows["batched_normal"] = phase_noise_vs_plain(chain, card)
     phase_crf_step_vs_plain(chain, card)
-    del chain
+    rows["chain_draws"] = phase_draws_vs_plain(chain, sgs_chain, card)["sgs"]
+    phase_independence(chain, sgs_chain, card)
+    del chain, sgs_chain
+    launches["chain_draws"] = phase_seed_rates(p, card)
     rows["masked_cg"] = phase_masked_cg_vs_plain(make_spherical_chain(p),
                                                  card)
     launches["masked_cg"] = phase_entry_point(p, card)
+    phase_entry_seed_list(p, card)
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": "mcmc_tpu_torch/ops/csrc/" + source,

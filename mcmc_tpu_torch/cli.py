@@ -53,8 +53,10 @@ Config schema (JSON shown; TOML works identically)::
 Only the sections for the selected family are required.  ``sample_points``
 (probe coordinates, reference set_sample_points_locations) and
 ``loss.diff_func`` (radar-misfit term) are optional extensions.
-``farm.rng_seeds`` is one int master seed: a per-chain list is refused
-(``utils/rng.resolve_seed``).
+``farm.rng_seeds`` is an int master seed or, as in the JAX package's
+configs, a list of per-chain seeds (``"rng_seeds": [5, 6]``, at least
+``n_chains`` of them): one stream a chain, chain i's draws depending on
+its own seed alone (``utils/rng.PerChainStreams``).
 """
 
 from __future__ import annotations

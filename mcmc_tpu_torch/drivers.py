@@ -67,7 +67,7 @@ def _farm(chain, n_chains, ckpt_dir, seeds, initial_beds, n_iter,
 
 
 def large_scale_chain_farm(chain, n_chains: int, initial_beds=None,
-                           rng_seeds: Optional[int] = None,
+                           rng_seeds=None,
                            n_iter: int = 5000,
                            output_path="./Data/output",
                            segment_size: int = 2000,
@@ -78,9 +78,13 @@ def large_scale_chain_farm(chain, n_chains: int, initial_beds=None,
     """Run (or resume) a farm of large-scale chains.
 
     chain: a configured ChainCRF prototype.  initial_beds: one bed per
-    chain / one to broadcast / None.  rng_seeds: an int master seed or
-    None (a per-chain seed list is refused, ``utils/rng.resolve_seed``).
-    Returns a list of per-chain result tuples (reference return layout).
+    chain / one to broadcast / None.  rng_seeds: an int master seed, None,
+    or a list of per-chain seeds, as the JAX package takes (at least
+    ``n_chains``, the first ``n_chains`` used): one stream a chain, chain
+    i's draws depending on ``rng_seeds[i]`` alone
+    (``utils/rng.PerChainStreams``).  A resume keeps the seeding the run
+    was started with.  Returns a list of per-chain result tuples
+    (reference return layout).
     """
     return _farm(chain, n_chains, Path(output_path) / "LargeScaleChain",
                  rng_seeds, initial_beds, n_iter, segment_size,
@@ -89,7 +93,7 @@ def large_scale_chain_farm(chain, n_chains: int, initial_beds=None,
 
 
 def small_scale_chain_farm(chain, n_chains: int, initial_beds=None,
-                           ssc_rng_seeds: Optional[int] = None,
+                           ssc_rng_seeds=None,
                            lsc_rng_seed: Optional[int] = None,
                            n_iter: int = 1000,
                            output_path="./Data/output",
@@ -103,7 +107,9 @@ def small_scale_chain_farm(chain, n_chains: int, initial_beds=None,
     Mirrors smallScaleChain_mp: ``initial_beds`` typically come from
     large-scale chain checkpoints; the run directory is nested under the
     parent large-scale chain's full seed (a truncated one could collide
-    and silently continue another parent's chains).
+    and silently continue another parent's chains).  ``ssc_rng_seeds``
+    as ``large_scale_chain_farm``'s ``rng_seeds``: an int, None, or a list
+    of per-chain seeds.
     """
     tag = str(lsc_rng_seed) if lsc_rng_seed is not None else "root"
     return _farm(chain, n_chains,

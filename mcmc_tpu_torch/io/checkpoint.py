@@ -6,7 +6,8 @@ per-run artifacts ``bed_{N}k.npy`` + ``results_{N}k.npz`` +
 ``current_iter.txt`` + two RNG-state JSON files become ONE atomic
 ``checkpoint_{N}.npz`` holding the full batched chain state (beds, patched
 residuals, Kahan loss accumulators, resample counters) and the sampler's
-generator state with its kind (``utils/rng.generator_state``), so a
+stream state with its kind (``utils/rng.generator_state``: a generator's
+state, or a seed-listed farm's per-chain keys and step counter), so a
 resumed farm continues the exact random stream.  Trace histories are
 written once per row, as incremental ``hist_{a}_{b}.npz`` segments.
 
@@ -22,9 +23,11 @@ IO.  Writes publish in submission order; readers flush the queue first;
 the queued writes behind it.
 
 What a load refuses: a checkpoint of the other chain family or grid
-(``run_with_checkpointing``), and one whose generator kind differs from
-the loading device's, or that has none (a JAX package checkpoint, whose
-RNG state is a per-chain key), with that reason.  Not carried over: the
+(``run_with_checkpointing``), and one whose stream kind differs from the
+loading sampler's (an int-seeded farm's generator on another device, or
+per-chain streams where the sampler is int-seeded, and the other way
+round), or that has none (a JAX package checkpoint, whose RNG state is a
+per-chain JAX key), with that reason.  Not carried over: the
 multi-process sharded layout (``checkpoint_{N}.proc{k}of{P}.npz`` +
 ``.ok`` marker), which waits for multi-GPU runs.
 """
@@ -282,13 +285,15 @@ class CheckpointManager:
             out = {k: v[:, :upto] for k, v in out.items()}
         return out
 
-    def load(self, cumulative_iter: Optional[int] = None, device=None):
+    def load(self, cumulative_iter: Optional[int] = None, device=None,
+             rng_kind: Optional[str] = None):
         """``(cumulative_iter, states, histories, meta)`` of the newest (or
         the named) checkpoint with the state on ``device`` (the card unless
         the caller asks for the CPU, ``utils/rng.resolve_device``), or None
         when there is none.  ``meta["rng_kind"]`` and ``meta["rng_state"]``
-        hold the generator state; a checkpoint without one, or of another
-        kind than ``device``'s generator, raises."""
+        hold the stream's state; a checkpoint without one, or of another
+        kind than ``rng_kind`` (default: ``device``'s generator kind, that
+        of an int-seeded sampler), raises."""
         self.flush()
         cps = self._checkpoints()
         if not cps:
@@ -316,12 +321,14 @@ class CheckpointManager:
                 "no torch generator can continue): it cannot be resumed "
                 "here; start a fresh run directory")
         device = resolve_device(device)
-        want = generator_kind(device)
+        want = generator_kind(device) if rng_kind is None else rng_kind
         if kind != want:
             raise ValueError(
-                f"{path.name} holds a {kind!r} generator state, but a "
-                f"sampler on {device} owns a {want!r} "
-                "generator: resume it on the device it was written on")
+                f"{path.name} holds a {kind!r} stream state, but the "
+                f"sampler on {device} owns a {want!r} stream: resume it "
+                "with the seeding it was written with (an int master seed "
+                "on the device it was written on, or a per-chain seed "
+                "list)")
         states = _arrays_to_state(arrays, meta.pop("state_class"), device)
         cum = meta.pop("cumulative_iter")
         meta["rng_state"] = rng_state
@@ -364,7 +371,7 @@ def run_with_checkpointing(sampler, n_iter: int, directory,
 
 def _run(mgr, sampler, n_iter, seeds, initial_beds, segment_size, progress,
          checkpoint_every):
-    ck = mgr.load(device=sampler.device)
+    ck = mgr.load(device=sampler.device, rng_kind=sampler.rng_kind(seeds))
     if ck is not None:
         done, states, histories, meta = ck
         expected_cls = "SGSState" if sampler.is_sgs else "ChainState"
@@ -387,7 +394,7 @@ def _run(mgr, sampler, n_iter, seeds, initial_beds, segment_size, progress,
         # a crash between a history append and its state save leaves a
         # stale segment ahead of the checkpoint
         mgr.prune_history(done)
-        sampler.restore_generator(meta["rng_kind"], meta["rng_state"])
+        sampler.restore_generator(meta["rng_kind"], meta["rng_state"], seeds)
         histories = {k: np.asarray(v) for k, v in histories.items()}
     else:
         done = 0

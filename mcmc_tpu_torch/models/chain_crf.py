@@ -20,7 +20,10 @@ PyTorch counterpart of ``mcmc_tpu/models/chain_crf.py`` (the reference's
 
 PyTorch idiom: every function works on a leading chain dimension (the JAX
 package ``vmap``s a single-chain step), the draws come from one explicit
-``torch.Generator``, and the state's ``fields`` tensor is updated IN PLACE
+``torch.Generator`` or, for a farm seeded with a list of per-chain seeds,
+from per-chain streams (``utils/rng.PerChainStreams``: one launch of the
+step's draw plan and one of the keyed noise, chain i's draws depending on
+its own seed alone), and the state's ``fields`` tensor is updated IN PLACE
 by each step (the Pallas kernel aliases it the same way).
 """
 
@@ -32,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.chain_draws import cached_plan, draw_plan, entry
 from ..ops.distance import min_dist_from_mask
 from ..ops.logistic import crf_weight_from_dist
 from ..ops.physics import masked_gaussian_loss, mass_conservation_residual
@@ -41,9 +45,10 @@ from ..ops.window_kernel import (fused_window_update,
                                  window_geometry)
 from ..utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                             WeightConfig)
-from ..utils.rng import resolve_device, resolve_seed
-from .randfield import (RandFieldArrays, RandFieldStatic, build_randfield,
-                        draw_block_params, finish_block)
+from ..utils.rng import PerChainStreams, resolve_device, resolve_seed
+from .randfield import (RandFieldArrays, RandFieldStatic,
+                        block_param_entries, block_params_from,
+                        build_randfield, draw_block_params, finish_block)
 
 IMPLS = ("auto", "eager", "fused")
 
@@ -193,22 +198,50 @@ def init_state(beds, consts: CRFConsts, n_chains: Optional[int] = None
                                            device=device))
 
 
-def draw(gen: torch.Generator, static: CRFStatic, consts: CRFConsts,
-         n: int, impl: str = "auto") -> Draws:
-    """One step's draws for ``n`` chains from ``gen``; the half-spectrum
-    noise comes from the Philox kernel, or its plain version under
-    ``impl="eager"`` (``ops/spectral.half_spectrum_noise``)."""
+def draw_plan_entries(static: CRFStatic):
+    """A seed-listed CRF step's draw plan: the block's size index and
+    variogram parameters, the centre index, the MH uniform and, with a
+    nugget, the (B, B) nugget normals; the half-spectrum noise is the
+    keyed noise kernel's."""
+    B = static.rf.B
+    nugget = ((entry("nugget_noise", "normal", B * B),)
+              if static.rf.has_nugget else ())
+    return (block_param_entries(static.rf)
+            + (entry("cidx", "index", n=static.n_region),
+               entry("u", "uniform")) + nugget)
+
+
+def draw(gen, static: CRFStatic, consts: CRFConsts, n: int,
+         impl: str = "auto") -> Draws:
+    """One step's draws for ``n`` chains from ``gen``, a generator or
+    per-chain streams (``draw_plan_entries``).  The half-spectrum noise
+    comes from the Philox kernel, or its plain version under
+    ``impl="eager"`` (``ops/spectral.half_spectrum_noise``), as do the
+    per-chain draws."""
     B = static.rf.B
     device = consts.stacked.device
-    size_idx, scale, nug, range_x, range_y = draw_block_params(
-        gen, n, static.rf, consts.rf)
-    noise = half_spectrum_noise(gen, n, (B, B), device, impl)
-    nugget_noise = None
-    if static.rf.has_nugget:
-        nugget_noise = torch.randn((n, B, B), generator=gen, device=device)
-    cidx = torch.randint(0, static.n_region, (n,), generator=gen,
-                         device=device)
-    u = torch.rand((n,), generator=gen, device=device)
+    if isinstance(gen, PerChainStreams):
+        if gen.n_chains != n:
+            raise ValueError(f"{gen.n_chains} per-chain streams for {n} "
+                             "chains")
+        d = draw_plan(gen, cached_plan(draw_plan_entries(static)), impl)
+        size_idx, scale, nug, range_x, range_y = block_params_from(
+            d, static.rf, consts.rf)
+        noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        nugget_noise = (d["nugget_noise"].view(n, B, B)
+                        if static.rf.has_nugget else None)
+        cidx, u = d["cidx"][:, 0], d["u"][:, 0]
+    else:
+        size_idx, scale, nug, range_x, range_y = draw_block_params(
+            gen, n, static.rf, consts.rf)
+        noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        nugget_noise = None
+        if static.rf.has_nugget:
+            nugget_noise = torch.randn((n, B, B), generator=gen,
+                                       device=device)
+        cidx = torch.randint(0, static.n_region, (n,), generator=gen,
+                             device=device)
+        u = torch.rand((n,), generator=gen, device=device)
     return Draws(noise=noise, size_idx=size_idx, scale=scale,
                  range_x=range_x, range_y=range_y, cidx=cidx, u=u,
                  nug=nug if static.rf.has_nugget else None,
@@ -310,13 +343,14 @@ def sample_probes(beds, sample_ij, n):
 
 def make_step(static: CRFStatic, impl: str = "auto"):
     """Build the full batched MH step: ``(consts, state, gen) -> (state,
-    trace)`` (draws, spectral proposal, window op, ledger, trace).  The
-    draws' half-spectrum noise comes from the Philox kernel
-    (``ops/noise_kernel.py``), and under ``impl="eager"`` from its plain
-    version, like the window op."""
+    trace)`` (draws, spectral proposal, window op, ledger, trace), ``gen``
+    a generator or per-chain streams (``draw``; the caller advances the
+    streams' step).  The draws' half-spectrum noise comes from the Philox
+    kernel (``ops/noise_kernel.py``), and under ``impl="eager"`` from its
+    plain version, like the window op."""
     mh_update = make_kernel(static, impl)
 
-    def step(consts: CRFConsts, state: ChainState, gen: torch.Generator):
+    def step(consts: CRFConsts, state: ChainState, gen):
         d = draw(gen, static, consts, state.fields.shape[0], impl)
         cx = consts.region_cells[d.cidx, 0]
         cy = consts.region_cells[d.cidx, 1]
@@ -478,8 +512,9 @@ class ChainCRF:
         return loss_mc + loss_data, loss_mc, loss_data
 
     def set_random_generator(self, rng_seed=None):
-        """Seed for the samplers built from this chain (an int, or None
-        for fresh entropy)."""
+        """Seed for the samplers built from this chain: an int, None for
+        fresh entropy, or a list of per-chain seeds (one stream a
+        chain)."""
         self.seed = resolve_seed(rng_seed)
 
     def set_sample_points_locations(self, loc):

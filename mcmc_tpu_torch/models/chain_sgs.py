@@ -40,7 +40,9 @@ JAX semantics kept where they differ from the CRF chain's: the trace's
 ``step`` and ``state.accepted`` count ``accept``, not ``accept & ~viol``;
 the state is written only where ``accept & ~viol``.  PyTorch idiom: every
 function takes a leading chain axis, the draws come from one explicit
-``torch.Generator``, and ``state.fields`` is updated IN PLACE.  Not
+``torch.Generator`` or, for a farm seeded with a list of per-chain seeds,
+from one launch of the per-chain draw kernel (``draw_plan_entries``,
+``ops/chain_draws.py``), and ``state.fields`` is updated IN PLACE.  Not
 carried over: the ``MCMC_TPU_SGS_SURGERY`` gates and the TPU's one-hot
 packing matmuls.  ``ChainSGS.run`` (the single-chain convenience) waits
 for a later slice.
@@ -57,6 +59,7 @@ import torch
 
 from ..ops.cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
                              mix_masked_cg_reference)
+from ..ops.chain_draws import cached_plan, draw_plan, entry
 from ..ops.covariance import (CovarianceSpec, covariance_norm,
                               fit_cov_mixture, make_rotation_matrix)
 from ..ops.lut_kernel import lut_interp, lut_interp_reference
@@ -68,7 +71,7 @@ from ..ops.sgs_window_kernel import (window_extract,
                                      window_writeback_reference)
 from ..ops.transforms import NormalScoreLUT, NormalScoreTransform
 from ..utils.config import LossConfig, SGSParams, VariogramConfig
-from ..utils.rng import resolve_device, resolve_seed
+from ..utils.rng import PerChainStreams, resolve_device, resolve_seed
 from .chain_crf import IMPLS, chain_loss_mc, sample_probes
 
 N_CONST = 10   # planes of SGSConsts.stacked
@@ -658,22 +661,52 @@ class SGSDraws:
     u: torch.Tensor        # (N,) float32 MH uniform
 
 
-def draw(gen: torch.Generator, static: SGSStatic, consts: SGSConsts,
-         n: int) -> SGSDraws:
-    """One step's draws for ``n`` chains from ``gen``."""
-    device = consts.stacked.device
+def draw_plan_entries(static: SGSStatic, consts: SGSConsts):
+    """A seed-listed SGS step's draw plan: the centre index, the block's
+    rows and columns, the draw's normals, the dropout uniforms (dropout
+    only) and the MH uniform."""
     n_noise = static.NE * static.NE + (static.SB * static.SB
                                        if static.has_nugget else 0)
-    cidx = torch.randint(0, static.n_region, (n,), generator=gen,
-                         device=device)
-    bsx = torch.randint(consts.block_min_x, consts.block_max_x, (n,),
-                        generator=gen, device=device)
-    bsy = torch.randint(consts.block_min_y, consts.block_max_y, (n,),
-                        generator=gen, device=device)
-    noise = torch.randn((n, n_noise), generator=gen, device=device)
-    drop_u = (torch.rand((n, static.SB, static.SB), generator=gen,
-                         device=device) if static.dropout else None)
-    u = torch.rand((n,), generator=gen, device=device)
+    drop = ((entry("drop_u", "uniform", static.SB * static.SB),)
+            if static.dropout else ())
+    return ((entry("cidx", "index", n=static.n_region),
+             entry("bsx", "index", n=consts.block_max_x - consts.block_min_x,
+                   lo=consts.block_min_x),
+             entry("bsy", "index", n=consts.block_max_y - consts.block_min_y,
+                   lo=consts.block_min_y),
+             entry("noise", "normal", n_noise)) + drop
+            + (entry("u", "uniform"),))
+
+
+def draw(gen, static: SGSStatic, consts: SGSConsts, n: int,
+         impl: str = "auto") -> SGSDraws:
+    """One step's draws for ``n`` chains from ``gen``: a generator, or
+    per-chain streams (one launch of ``draw_plan_entries``' plan; its
+    plain version under ``impl="eager"``)."""
+    device = consts.stacked.device
+    if isinstance(gen, PerChainStreams):
+        if gen.n_chains != n:
+            raise ValueError(f"{gen.n_chains} per-chain streams for {n} "
+                             "chains")
+        d = draw_plan(gen, cached_plan(draw_plan_entries(static, consts)),
+                      impl)
+        cidx, bsx, bsy = d["cidx"][:, 0], d["bsx"][:, 0], d["bsy"][:, 0]
+        noise, u = d["noise"], d["u"][:, 0]
+        drop_u = (d["drop_u"].view(n, static.SB, static.SB)
+                  if static.dropout else None)
+    else:
+        n_noise = static.NE * static.NE + (static.SB * static.SB
+                                           if static.has_nugget else 0)
+        cidx = torch.randint(0, static.n_region, (n,), generator=gen,
+                             device=device)
+        bsx = torch.randint(consts.block_min_x, consts.block_max_x, (n,),
+                            generator=gen, device=device)
+        bsy = torch.randint(consts.block_min_y, consts.block_max_y, (n,),
+                            generator=gen, device=device)
+        noise = torch.randn((n, n_noise), generator=gen, device=device)
+        drop_u = (torch.rand((n, static.SB, static.SB), generator=gen,
+                             device=device) if static.dropout else None)
+        u = torch.rand((n,), generator=gen, device=device)
     return SGSDraws(cx=consts.region_cells[cidx, 0],
                     cy=consts.region_cells[cidx, 1], bsx=bsx, bsy=bsy,
                     noise=noise, drop_u=drop_u, u=u)
@@ -681,11 +714,13 @@ def draw(gen: torch.Generator, static: SGSStatic, consts: SGSConsts,
 
 def make_sgs_step(static: SGSStatic, impl: str = "auto"):
     """The full batched SGS step: ``(consts, state, gen) -> (state,
-    trace)``, the draws then ``make_sgs_kernel``'s update."""
+    trace)``, the draws (``gen`` a generator or per-chain streams; the
+    caller advances the streams' step) then ``make_sgs_kernel``'s
+    update."""
     mh_update = make_sgs_kernel(static, impl)
 
-    def step(consts: SGSConsts, state: SGSState, gen: torch.Generator):
-        d = draw(gen, static, consts, state.fields.shape[0])
+    def step(consts: SGSConsts, state: SGSState, gen):
+        d = draw(gen, static, consts, state.fields.shape[0], impl)
         return mh_update(consts, state, d.cx, d.cy, d.bsx, d.bsy, d.noise,
                          d.drop_u, d.u)
 
@@ -837,8 +872,9 @@ class ChainSGS:
         return loss_mc, loss_mc, 0.0
 
     def set_random_generator(self, rng_seed=None):
-        """Seed for the samplers built from this chain (an int, or None
-        for fresh entropy)."""
+        """Seed for the samplers built from this chain: an int, None for
+        fresh entropy, or a list of per-chain seeds (one stream a
+        chain)."""
         self.seed = resolve_seed(rng_seed)
 
     def set_sample_points_locations(self, loc):

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``mcmc_tpu/models/randfield.py`` (the reference's
 RandField, MCMC.py:433-778).  Host-side setup builds the discrete
 block-size menu and the stacked logistic edge masks; the draws produce one
-(B, B) proposal per chain from a single statically shaped FFT.
+(B, B) proposal per chain from a single statically shaped FFT.  The draws
+take a ``torch.Generator``; a seed-listed farm's step reads the same
+values from its draw plan's views (``block_params_from``).
 
 Only the spectral generation method is ported: the gstools-SRF method
 (``spectral=False``, ``mcmc_tpu/ops/srf.py``) waits for ROADMAP Queue 1
@@ -18,8 +20,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops.chain_draws import entry
 from ..ops.logistic import make_edge_mask
-from ..ops.spectral import (block_mask, sample_field_params, spectral_field,
+from ..ops.spectral import (block_mask, field_param_entries, field_params,
+                            sample_field_params, spectral_field,
                             standardize_masked)
 from ..utils.config import BlockMenuConfig, RandFieldConfig, WeightConfig
 from ..utils.rng import resolve_device
@@ -120,6 +124,23 @@ def finish_block(raw, size_idx, scale, arrays: RandFieldArrays,
         f = (f * scale[:, None, None]
              + nugget_noise * torch.sqrt(nug)[:, None, None]) * mf
     return f * arrays.edge_masks[size_idx]
+
+
+def block_param_entries(static: RandFieldStatic):
+    """A seed-listed step's draw-plan entries for ``block_params_from``:
+    the size index and the variogram parameters' unit uniforms."""
+    return ((entry("size_idx", "index", n=static.n_sizes),)
+            + field_param_entries(static.isotropic))
+
+
+def block_params_from(d, static: RandFieldStatic, arrays: RandFieldArrays):
+    """``draw_block_params``' values from the views ``d`` of a draw plan
+    holding ``block_param_entries`` (``ops/chain_draws.draw_plan``)."""
+    scale, nug, range_x, range_y = field_params(
+        lambda name: d[name][:, 0], arrays.scale_min, arrays.scale_max,
+        arrays.nugget_max, arrays.range_min_x, arrays.range_max_x,
+        arrays.range_min_y, arrays.range_max_y, static.isotropic)
+    return d["size_idx"][:, 0], scale, nug, range_x, range_y
 
 
 def draw_block_params(gen, n, static: RandFieldStatic,

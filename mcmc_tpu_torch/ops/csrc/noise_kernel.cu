@@ -40,6 +40,17 @@
 //     count takes scalar stores in the same kernel (a uniform branch).
 // The seed is read from device memory: the host never waits for it.
 //
+// The keyed entry (mcmc_batched_normal_keyed), for a farm seeded with a
+// list of per-chain seeds: the same kernel with chain c keyed by its own
+// (k0, k1) = keys[c] and countered by (step low word, slot, call, step
+// high word), the step an int64 read from device memory.  Every output
+// is then a pure function of (key c, step, slot, index), so chain c's
+// normals do not depend on the other chains; the plain version is
+// mcmc_tpu_torch/ops/noise_kernel.py::batched_normal_keyed_reference.
+// The design is the single-seed entry's: one key schedule a block (its
+// chain's) instead of one a launch is a change of inputs, and the
+// single-seed entry's bits are unchanged (a template flag).
+//
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libnoise_kernel.so noise_kernel.cu
@@ -90,14 +101,28 @@ __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
   zs = r * s;
 }
 
+// kKeyed: key keys[chain], counter (step lo, slot, call, step hi); else
+// key seed[0], counter (call, chain, 0, 0)
+template <bool kKeyed>
 __global__ void __launch_bounds__(kThreads)
-noise_kernel(const long long* __restrict__ seed, float* __restrict__ out,
-             int pairs, int calls) {
+noise_kernel(const long long* __restrict__ seed,
+             const uint2* __restrict__ keys, uint32_t slot,
+             float* __restrict__ out, int pairs, int calls) {
   const int chain = blockIdx.x;
-  const unsigned long long s = (unsigned long long)seed[0];
   Keys k;
-  k.k0[0] = (uint32_t)s;
-  k.k1[0] = (uint32_t)(s >> 32);
+  uint32_t step_lo = 0, step_hi = 0;
+  if (kKeyed) {
+    const uint2 key = keys[chain];
+    k.k0[0] = key.x;
+    k.k1[0] = key.y;
+    const unsigned long long s = (unsigned long long)seed[0];
+    step_lo = (uint32_t)s;
+    step_hi = (uint32_t)(s >> 32);
+  } else {
+    const unsigned long long s = (unsigned long long)seed[0];
+    k.k0[0] = (uint32_t)s;
+    k.k1[0] = (uint32_t)(s >> 32);
+  }
 #pragma unroll
   for (int round = 1; round < kRounds; ++round) {
     k.k0[round] = k.k0[round - 1] + kW0;
@@ -114,8 +139,10 @@ noise_kernel(const long long* __restrict__ seed, float* __restrict__ out,
     for (int j = 0; j < kCalls; ++j) {
       const int call = first + j * kThreads;
       if (call >= calls) break;
-      const uint4 w = philox4x32_10(
-          make_uint4((uint32_t)call, (uint32_t)chain, 0u, 0u), k);
+      const uint4 ctr =
+          kKeyed ? make_uint4(step_lo, slot, (uint32_t)call, step_hi)
+                 : make_uint4((uint32_t)call, (uint32_t)chain, 0u, 0u);
+      const uint4 w = philox4x32_10(ctr, k);
       const int q = 2 * call;
       float c0, s0, c1, s1;
       box_muller(w.x, w.y, c0, s0);
@@ -136,20 +163,37 @@ noise_kernel(const long long* __restrict__ seed, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// (n_chains, rows, cols) float32 normals into out; rows even.
-extern "C" int mcmc_batched_normal(const void* seed, void* out, int n_chains,
-                                   int rows, int cols, void* stream) {
+template <bool kKeyed>
+int launch_noise(const void* seed, const void* keys, int slot, void* out,
+                 int n_chains, int rows, int cols, void* stream) {
   if (n_chains <= 0 || rows <= 0 || cols <= 0) return 0;
   if (rows % 2) return (int)cudaErrorInvalidValue;
   const int pairs = rows / 2 * cols;
   const int calls = (pairs + 1) / 2;
   const int blocks = (calls + kThreads * kCalls - 1) / (kThreads * kCalls);
   const dim3 grid(n_chains, blocks < 65535 ? blocks : 65535);
-  noise_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)seed, (float*)out, pairs, calls);
+  noise_kernel<kKeyed><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)seed, (const uint2*)keys, (uint32_t)slot,
+      (float*)out, pairs, calls);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// (n_chains, rows, cols) float32 normals into out; rows even.
+extern "C" int mcmc_batched_normal(const void* seed, void* out, int n_chains,
+                                   int rows, int cols, void* stream) {
+  return launch_noise<false>(seed, nullptr, 0, out, n_chains, rows, cols,
+                             stream);
+}
+
+// The keyed entry: keys (n_chains, 2) uint32, step one int64, both in
+// device memory.
+extern "C" int mcmc_batched_normal_keyed(const void* keys, const void* step,
+                                         void* out, int slot, int n_chains,
+                                         int rows, int cols, void* stream) {
+  return launch_noise<true>(step, keys, slot, out, n_chains, rows, cols,
+                            stream);
 }
 
 extern "C" const char* mcmc_cuda_error_string(int code) {

@@ -35,27 +35,66 @@ from .transforms import lut_clip_bound, lut_lookup
 lut_interp_reference = lut_lookup  # the plain version, on any device
 
 
+def bind_library(lib):
+    """Type the entry points of a built ``lut_kernel.cu`` (this
+    checkout's, or another's in ``ab_lut_kernel.py``); returns ``lib``."""
+    lib.mcmc_lut_interp.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
+    lib.mcmc_lut_interp.restype = ctypes.c_int
+    lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _cuda_library():
     from .cuda_build import load_library
 
     lib = load_library("lut_kernel").lib
     if lib.mcmc_lut_interp.argtypes is None:  # else pointers are cut
-        lib.mcmc_lut_interp.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3
-            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
-        lib.mcmc_lut_interp.restype = ctypes.c_int
-        lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
+        bind_library(lib)
+        lib.mcmc_lut_info.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_void_p]
+        lib.mcmc_lut_info.restype = ctypes.c_int
+        lib.mcmc_empty_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.mcmc_empty_launch.restype = ctypes.c_int
     return lib
 
 
-def lut_interp(x, lo: float, scale: float, table):
-    """LUT interpolation (module docstring): the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    if x.device.type == "cpu":
-        return lut_interp_reference(x, lo, scale, table)
-    if x.device.type != "cuda":
-        raise ValueError(f"no LUT kernel for device {x.device}")
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def lut_kernel_info(x) -> dict:
+    """The kernel's launch for the CUDA tensor ``x`` as the CUDA runtime
+    reports it: CTAs, threads a CTA, registers and local (spill) bytes a
+    thread, resident CTAs a multiprocessor."""
+    lib = _cuda_library()
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(x.device):
+        _raise_on(lib, lib.mcmc_lut_info(x.data_ptr(), x.numel(),
+                                         ctypes.addressof(out)), "LUT info")
+    return dict(zip(("ctas", "threads", "registers", "local_bytes",
+                     "resident_ctas_per_sm"), list(out)))
+
+
+def empty_launch(blocks: int, device=None):
+    """Launch an empty kernel on ``blocks`` CTAs of the LUT kernel's width
+    on the current stream: the floor under any launch of that grid."""
+    lib = _cuda_library()
+    device = torch.device("cuda" if device is None else device)
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.mcmc_empty_launch(
+            int(blocks), torch.cuda.current_stream(device).cuda_stream),
+            "empty launch")
+
+
+def launch_lut(lib, x, lo: float, scale: float, table):
+    """Check CUDA operands and launch the LUT entry point of ``lib`` (this
+    checkout's, or another's in ``ab_lut_kernel.py``) on the current
+    stream; returns y."""
     for name, t in (("x", x), ("table", table)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -69,16 +108,24 @@ def lut_interp(x, lo: float, scale: float, table):
     if table.data_ptr() % 8:
         raise ValueError("table must be 8-byte aligned (one float2 a row)")
     n = table.shape[0]
-    lib = _cuda_library()
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.mcmc_lut_interp(
             x.data_ptr(), table.data_ptr(), out.data_ptr(), float(lo),
             float(scale), lut_clip_bound(n), n, x.numel(), stream)
-    if err != 0:
-        msg = lib.mcmc_cuda_error_string(err).decode()
-        raise RuntimeError(f"LUT kernel launch failed: {msg} ({err})")
+    _raise_on(lib, err, "LUT kernel launch")
+    return out
+
+
+def lut_interp(x, lo: float, scale: float, table):
+    """LUT interpolation (module docstring): the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return lut_interp_reference(x, lo, scale, table)
+    if x.device.type != "cuda":
+        raise ValueError(f"no LUT kernel for device {x.device}")
+    out = launch_lut(_cuda_library(), x, lo, scale, table)
     lut_interp.launches += 1
     return out
 

@@ -27,6 +27,16 @@ The seed is a one-element int64 tensor on the device (``draw_seed``
 draws it from the sampler's generator), read by the kernel from device
 memory, so no draw waits for the host.  Its low word is Philox's key 0,
 its high word key 1.
+
+The keyed entry, for a farm seeded with a list of per-chain seeds
+(``utils/rng.PerChainStreams``): ``batched_normal_keyed`` (dispatcher),
+``batched_normal_keyed_reference`` (plain version), the same kernel
+launched with chain c keyed by its own (k0, k1) = ``keys[c]`` and
+countered by (step low word, slot, call, step high word), the step a
+(1,) int64 tensor read from device memory.  Every output is then a pure
+function of (key c, step, slot, index): chain c's normals do not depend
+on the other chains.  The layout and transform are the single-seed
+entry's.  ``batched_normal_keyed.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -88,12 +98,28 @@ def _check_rows(rows: int):
         raise ValueError("rows must be even (sin/cos Box-Muller pairs)")
 
 
+def _normals_from_words(words, n: int, rows: int, cols: int):
+    """(n, rows, cols) normals from the (n, calls) Philox words of each
+    chain's calls: pair 2c takes words (0, 1) of call c, pair 2c + 1
+    words (2, 3); cos into the first half of the rows, sin the second."""
+    w0, w1, w2, w3 = words
+    pairs = rows // 2 * cols
+    calls = w0.shape[1]
+    b1 = torch.stack([w0, w2], dim=-1).reshape(n, 2 * calls)[:, :pairs]
+    b2 = torch.stack([w1, w3], dim=-1).reshape(n, 2 * calls)[:, :pairs]
+    zc, zs = box_muller(b1, b2)
+    return torch.cat([zc, zs], dim=1).reshape(n, rows, cols)
+
+
+def _calls(rows: int, cols: int) -> int:
+    return (rows // 2 * cols + 1) // 2
+
+
 def batched_normal_reference(seed, n: int, rows: int, cols: int):
     """Plain PyTorch version (module docstring): (n, rows, cols) float32
     normals from the (1,) int64 ``seed`` tensor, on its device."""
     _check_rows(rows)
-    pairs = rows // 2 * cols
-    calls = (pairs + 1) // 2
+    calls = _calls(rows, cols)
     s = seed.reshape(()).to(torch.int64)
     k0, k1 = s & M32, (s >> 32) & M32
     call = torch.arange(calls, dtype=torch.int64, device=seed.device)
@@ -101,12 +127,35 @@ def batched_normal_reference(seed, n: int, rows: int, cols: int):
     call, chain = call[None, :].expand(n, calls), chain[:, None].expand(
         n, calls)
     zero = torch.zeros_like(call)
-    w0, w1, w2, w3 = philox4x32_10(call, chain, zero, zero, k0, k1)
-    # pair 2c takes words (0, 1), pair 2c + 1 words (2, 3)
-    b1 = torch.stack([w0, w2], dim=-1).reshape(n, 2 * calls)[:, :pairs]
-    b2 = torch.stack([w1, w3], dim=-1).reshape(n, 2 * calls)[:, :pairs]
-    zc, zs = box_muller(b1, b2)
-    return torch.cat([zc, zs], dim=1).reshape(n, rows, cols)
+    words = philox4x32_10(call, chain, zero, zero, k0, k1)
+    return _normals_from_words(words, n, rows, cols)
+
+
+def keyed_words(keys, step, slot: int, calls: int):
+    """The four (N, calls) Philox words of each chain's calls 0..calls-1
+    at ``slot``: chain c keyed by ``keys[c]``, call j countered by (step
+    low word, slot, j, step high word).  int64 tensors holding 32-bit
+    words, on ``keys``' device."""
+    n = keys.shape[0]
+    k = keys.to(torch.int64) & M32
+    s = step.reshape(()).to(torch.int64)
+    call = torch.arange(calls, dtype=torch.int64,
+                        device=keys.device)[None, :].expand(n, calls)
+    shape = (n, calls)
+    return philox4x32_10((s & M32).expand(shape),
+                         torch.full(shape, int(slot), dtype=torch.int64,
+                                    device=keys.device),
+                         call, ((s >> 32) & M32).expand(shape),
+                         k[:, 0:1], k[:, 1:2])
+
+
+def batched_normal_keyed_reference(keys, step, slot: int, rows: int,
+                                   cols: int):
+    """Plain PyTorch version of the keyed entry (module docstring):
+    (N, rows, cols) float32 normals, chain c from ``keys[c]``."""
+    _check_rows(rows)
+    words = keyed_words(keys, step, slot, _calls(rows, cols))
+    return _normals_from_words(words, keys.shape[0], rows, cols)
 
 
 def _cuda_library():
@@ -117,6 +166,9 @@ def _cuda_library():
         lib.mcmc_batched_normal.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         lib.mcmc_batched_normal.restype = ctypes.c_int
+        lib.mcmc_batched_normal_keyed.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.mcmc_batched_normal_keyed.restype = ctypes.c_int
         lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -153,3 +205,51 @@ def batched_normal(seed, n: int, rows: int, cols: int):
 
 
 batched_normal.launches = 0
+
+
+def check_streams(keys, step):
+    """Refuse per-chain keys and a step counter the kernels do not take."""
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no per-chain kernel for device {keys.device}")
+    if keys.dtype != torch.uint32 or keys.dim() != 2 or keys.shape[1] != 2:
+        raise TypeError(f"keys must be (N, 2) uint32, got {keys.dtype} of "
+                        f"shape {tuple(keys.shape)}")
+    if step.dtype != torch.int64 or step.numel() != 1:
+        raise TypeError(f"step must be one int64 value, got {step.dtype} "
+                        f"of shape {tuple(step.shape)}")
+    if step.device != keys.device:
+        raise ValueError(f"step is on {step.device}, keys on {keys.device}")
+
+
+def batched_normal_keyed(keys, step, slot: int, rows: int, cols: int):
+    """(N, rows, cols) float32 standard normals, chain c from its own key
+    (module docstring): the operands checked, then the plain version for
+    CPU keys, the CUDA kernel for CUDA keys."""
+    _check_rows(rows)
+    check_streams(keys, step)
+    n = keys.shape[0]
+    if n * rows * cols >= 2 ** 31:
+        raise ValueError(f"{n} x {rows} x {cols} normals: the kernel takes "
+                         "fewer than 2^31 per launch")
+    if not 0 <= int(slot) < 2 ** 31:
+        raise ValueError(f"slot {slot} is not a non-negative int32")
+    if keys.device.type == "cpu":
+        return batched_normal_keyed_reference(keys, step, slot, rows, cols)
+    keys, step = keys.contiguous(), step.contiguous()
+    out = torch.empty((n, rows, cols), dtype=torch.float32,
+                      device=keys.device)
+    lib = _cuda_library()
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    with torch.cuda.device(keys.device):
+        err = lib.mcmc_batched_normal_keyed(
+            keys.data_ptr(), step.data_ptr(), out.data_ptr(),
+            int(slot), n, rows, cols, stream)
+    if err != 0:
+        msg = lib.mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"keyed noise kernel launch failed: {msg} "
+                           f"({err})")
+    batched_normal_keyed.launches += 1
+    return out
+
+
+batched_normal_keyed.launches = 0

@@ -2,10 +2,11 @@
 
 PyTorch counterpart of ``mcmc_tpu/ops/spectral.py`` (the proposal
 generator of the reference's RandField, MCMC.py:176-254).  Every draw takes
-an explicit ``torch.Generator`` and a leading chain dimension ``n``; the
-field is synthesized on a fixed (B, B) grid by the half-spectrum form
-``irfft2(noise_half * sqrt(S_half))`` so one FFT shape serves the whole
-block-size menu.  Reference quirks kept as in the JAX package: anisotropic
+an explicit ``torch.Generator`` (``half_spectrum_noise`` also the per-chain
+streams of a seed-listed farm, ``utils/rng.PerChainStreams``) and a
+leading chain dimension ``n``; the field is synthesized on a fixed (B, B)
+grid by the half-spectrum form ``irfft2(noise_half * sqrt(S_half))`` so
+one FFT shape serves the whole block-size menu.  Reference quirks kept as in the JAX package: anisotropic
 ranges collapse to the geometric mean, per-model length conventions
 (range/sqrt(3), /3, /2), the matérn density in ``4 pi k^2`` form, and exact
 zero-mean / unit-variance standardization over the block.
@@ -19,27 +20,48 @@ import math
 import numpy as np
 import torch
 
-from .noise_kernel import batched_normal, batched_normal_reference, draw_seed
+from ..utils.rng import PerChainStreams
+from .chain_draws import SLOTS, entry
+from .noise_kernel import (batched_normal, batched_normal_keyed,
+                           batched_normal_keyed_reference,
+                           batched_normal_reference, draw_seed)
 
 
-def _uniform(gen, n, lo, hi, device):
-    """(n,) float32 uniform draws on [lo, hi)."""
-    u = torch.rand((n,), generator=gen, device=device, dtype=torch.float32)
-    return lo + (hi - lo) * u
+def field_param_entries(isotropic: bool):
+    """The draw-plan entries of ``field_params``' unit uniforms."""
+    names = ("scale", "nugget", "range_x") + (() if isotropic
+                                               else ("range_y",))
+    return tuple(entry(name, "uniform") for name in names)
+
+
+def field_params(unit, scale_min, scale_max, nugget_max, range_min_x,
+                 range_max_x, range_min_y, range_max_y, isotropic: bool):
+    """Per-draw variogram parameters (reference MCMC.py:199-207) from unit
+    uniforms: ``unit(name)`` gives the (n,) float32 draws on [0, 1) of
+    ``scale``, ``nugget``, ``range_x`` and, anisotropic, ``range_y``,
+    asked for in that order.  Returns (scale, nugget, range_x, range_y),
+    each (n,) float32; scale is already divided by 3."""
+    def on(name, lo, hi):
+        return lo + (hi - lo) * unit(name)
+
+    scale = on("scale", scale_min, scale_max) / 3.0
+    nug = on("nugget", 0.0, nugget_max)
+    range_x = on("range_x", range_min_x, range_max_x)
+    range_y = (range_x if isotropic
+               else on("range_y", range_min_y, range_max_y))
+    return scale, nug, range_x, range_y
 
 
 def sample_field_params(gen, n, scale_min, scale_max, nugget_max,
                         range_min_x, range_max_x, range_min_y, range_max_y,
                         isotropic: bool, device):
-    """Per-draw variogram parameters for ``n`` chains (reference
-    MCMC.py:199-207).  Returns (scale, nugget, range_x, range_y), each (n,)
-    float32; scale is already divided by 3."""
-    scale = _uniform(gen, n, scale_min, scale_max, device) / 3.0
-    nug = _uniform(gen, n, 0.0, nugget_max, device)
-    range_x = _uniform(gen, n, range_min_x, range_max_x, device)
-    range_y = (range_x if isotropic
-               else _uniform(gen, n, range_min_y, range_max_y, device))
-    return scale, nug, range_x, range_y
+    """Per-draw variogram parameters for ``n`` chains from ``gen``
+    (``field_params``)."""
+    return field_params(
+        lambda name: torch.rand((n,), generator=gen, device=device,
+                                dtype=torch.float32),
+        scale_min, scale_max, nugget_max, range_min_x, range_max_x,
+        range_min_y, range_max_y, isotropic)
 
 
 def spectral_density(model_name: str, k, range_x, range_y, smoothness):
@@ -94,16 +116,27 @@ def spectral_field_from_noise(noise, shape, res, model_name: str, range_x,
 
 
 def half_spectrum_noise(gen, n, shape, device, impl: str = "auto"):
-    """(n, ny, nx//2+1) complex64 standard white noise: one seed from
-    ``gen``, then (n, 2·ny, nx//2+1) Philox normals
-    (``ops/noise_kernel.py``), the first ny rows the real parts and the
-    rest the imaginary, as the JAX package's hardware-PRNG path assembles
-    them (``chain_crf.py:424-425``).  ``impl="eager"`` draws them with the
-    plain version, anything else through the dispatcher (the kernel for a
-    CUDA device)."""
+    """(n, ny, nx//2+1) complex64 standard white noise: (n, 2·ny, nx//2+1)
+    Philox normals (``ops/noise_kernel.py``), the first ny rows the real
+    parts and the rest the imaginary, as the JAX package's hardware-PRNG
+    path assembles them (``chain_crf.py:424-425``).  From a generator:
+    one seed drawn from it, then the single-seed entry; from per-chain
+    streams: the keyed entry at the ``spectrum`` slot, chain c from its
+    own key.  ``impl="eager"`` draws them with the plain version,
+    anything else through the dispatcher (the kernel for a CUDA
+    device)."""
     ny, nh = shape[0], shape[1] // 2 + 1
-    normal = batched_normal_reference if impl == "eager" else batched_normal
-    zn = normal(draw_seed(gen, device), n, 2 * ny, nh)
+    eager = impl == "eager"
+    if isinstance(gen, PerChainStreams):
+        if gen.n_chains != n:
+            raise ValueError(f"{gen.n_chains} per-chain streams for {n} "
+                             "chains")
+        normal = (batched_normal_keyed_reference if eager
+                  else batched_normal_keyed)
+        zn = normal(gen.keys, gen.step, SLOTS["spectrum"], 2 * ny, nh)
+    else:
+        normal = batched_normal_reference if eager else batched_normal
+        zn = normal(draw_seed(gen, device), n, 2 * ny, nh)
     return torch.complex(zn[:, :ny], zn[:, ny:])
 
 

@@ -12,9 +12,13 @@ Both chain families run here: a ``ChainCRF`` steps through
 ``models/chain_crf.make_step``, a ``ChainSGS`` through
 ``models/chain_sgs.make_sgs_step``.  Not carried over from the JAX package:
 the device mesh, chunked launches (``scan_chunked``) and grid auto-padding,
-which were TPU workarounds; per-chain seed lists and multi-GPU sharding
-wait for later slices (ROADMAP Queue 1).  The generator's state goes in
-and out for checkpoints (``io/checkpoint.py``).
+which were TPU workarounds; multi-GPU sharding waits for a later slice
+(ROADMAP Queue 1).  ``init(seeds=...)`` takes an int master seed (one
+``torch.Generator`` for the farm) or, as the JAX package does, a list of
+per-chain seeds (``utils/rng.PerChainStreams``: chain i's draws depend
+on ``seeds[i]`` alone; ``run_segment`` advances their step counter once
+a step, on the device).  The stream's state goes in and out for
+checkpoints (``io/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ from ..models.chain_crf import ChainState, IMPLS, init_state, make_step
 from ..models.chain_sgs import (ChainSGS, SGSState, make_sgs_step,
                                 sgs_init_state)
 from ..utils.progress import MultiChainProgress
-from ..utils.rng import (generator_state, make_generator, resolve_device,
-                         restore_generator)
+from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, generator_kind,
+                         generator_state, is_seed_list, make_generator,
+                         resolve_device, resolve_seed, restore_generator)
 
 
 class MultiChainSampler:
@@ -70,12 +75,18 @@ class MultiChainSampler:
         chain's beds are full-space: they are detrended and clamp-
         roundtripped like the builder's (``ChainSGS.preprocess_beds``),
         and their z-planes computed on the host.
-        seeds: int master seed or None (fresh entropy); a None falls back
-        to the chain's ``set_random_generator`` seed when it has one.
+        seeds: int master seed, a list of per-chain ints (at least
+        ``n_chains``; the first ``n_chains`` are used), or None (fresh
+        entropy); a None falls back to the chain's
+        ``set_random_generator`` seed when it has one.
         """
         if seeds is None:
             seeds = self.chain.seed
-        self.generator = make_generator(seeds, self.device)
+        if is_seed_list(seeds):
+            self.generator = PerChainStreams.from_seeds(
+                resolve_seed(seeds, self.n_chains), self.device)
+        else:
+            self.generator = make_generator(seeds, self.device)
         if self.is_sgs:
             if initial_beds is None:
                 beds = self.chain._initial_detrended
@@ -93,17 +104,37 @@ class MultiChainSampler:
                                   self.static.use_transform, self.n_chains)
         return init_state(beds, self.consts, self.n_chains)
 
+    def rng_kind(self, seeds=None) -> str:
+        """The kind of stream this sampler owns: its stream's after
+        ``init``, else the kind ``init(seeds)`` would make (a seed list
+        gives per-chain streams, anything else the device's
+        generator)."""
+        if seeds is None and self.generator is not None:
+            per_chain = isinstance(self.generator, PerChainStreams)
+        else:
+            per_chain = is_seed_list(self.chain.seed if seeds is None
+                                     else seeds)
+        return PER_CHAIN_KIND if per_chain else generator_kind(self.device)
+
     def generator_state(self):
-        """``(kind, uint8 state)`` of the sampler's generator, for a
+        """``(kind, uint8 state)`` of the sampler's stream, for a
         checkpoint (``utils/rng.generator_state``)."""
         if self.generator is None:
             raise RuntimeError("call init() before reading the generator")
         return generator_state(self.generator)
 
-    def restore_generator(self, kind: str, state) -> None:
+    def restore_generator(self, kind: str, state, seeds=None) -> None:
         """Continue the stream a checkpoint stored; a state of another
-        generator kind than this device's raises."""
-        self.generator = restore_generator(kind, state, self.device)
+        kind than ``rng_kind(seeds)`` raises, and per-chain streams for
+        another number of chains too."""
+        gen = restore_generator(kind, state, self.device,
+                                want=self.rng_kind(seeds))
+        if (isinstance(gen, PerChainStreams)
+                and gen.n_chains != self.n_chains):
+            raise ValueError(f"the state holds {gen.n_chains} per-chain "
+                             f"streams, the sampler runs {self.n_chains} "
+                             "chains")
+        self.generator = gen
 
     # -- execution -----------------------------------------------------------
 
@@ -126,8 +157,11 @@ class MultiChainSampler:
         if self.generator is None:
             raise RuntimeError("call init() before running the sampler")
         bufs = self._trace_buffers(int(n_steps))
+        per_chain = isinstance(self.generator, PerChainStreams)
         for t in range(int(n_steps)):
             states, tr = self._step(self.consts, states, self.generator)
+            if per_chain:
+                self.generator.advance()
             for k, buf in bufs.items():
                 buf[t] = tr[k]
         return states, bufs

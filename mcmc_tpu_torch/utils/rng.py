@@ -1,18 +1,31 @@
 """Random streams and devices for the PyTorch port.
 
-The JAX package carries one splittable key per chain inside the chain
-state (``mcmc_tpu/utils/rng.py``).  Here a sampler owns ONE explicit
-``torch.Generator`` on its device, seeded from an int, and every batched
-draw of a step takes it as an argument: there is no global RNG and no
-per-chain key.  The two frameworks' generators give different numbers for
-the same seed, so parity tests feed both packages the same numpy draws.
+Two kinds of stream, as the JAX package's two ways of seeding a farm
+(``mcmc_tpu/utils/rng.py``: ``split_for_chains`` and
+``keys_from_seed_list``):
 
-A checkpoint stores the generator's state beside the chain state
+- **An int master seed** (or ``None``): a sampler owns ONE explicit
+  ``torch.Generator`` on its device, and every batched draw of a step
+  takes it as an argument, so a chain's draws depend on the whole farm.
+- **A list of per-chain seeds**: one stream per chain
+  (``PerChainStreams``).  Chain i's key is the two 32-bit words of
+  SplitMix64(seeds[i] mod 2^64), computed on the host; with a step
+  counter kept on the device, every draw value is a pure function of
+  (key i, step, slot, index), ``slot`` naming the draw site
+  (``ops/chain_draws.SLOTS``).  Chain i's draws then depend on
+  ``seeds[i]`` and the step alone, as chain i of the JAX package's farm
+  depends on its own key alone.  The draws come from the per-chain
+  Philox kernels (``ops/chain_draws.py``, ``ops/noise_kernel.py``).
+
+The two frameworks' generators give different numbers for the same seed,
+so parity tests feed both packages the same numpy draws.
+
+A checkpoint stores the stream's state beside the chain state
 (``generator_state``), with its kind: ``"cuda-philox"`` (the card's
-Philox seed and offset) or ``"cpu-mt19937"`` (the CPU's Mersenne
-Twister).  ``restore_generator`` refuses a state of the other kind, since
-neither can continue the other's stream.  A list of per-chain seeds is
-refused: it needs per-chain streams, which no path of the port has yet.
+Philox seed and offset), ``"cpu-mt19937"`` (the CPU's Mersenne Twister)
+or ``"philox-per-chain"`` (the per-chain keys and the step, on either
+device).  ``restore_generator`` refuses a state of another kind than the
+sampler's, since none can continue another's stream.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``resolve_device`` turns ``None`` into ``"cuda"`` and refuses a CUDA
@@ -21,10 +34,14 @@ device on a machine without one, naming ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 GENERATOR_KINDS = {"cuda": "cuda-philox", "cpu": "cpu-mt19937"}
+PER_CHAIN_KIND = "philox-per-chain"
+M64 = (1 << 64) - 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,20 +56,104 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def resolve_seed(seed) -> int:
-    """An int seed from an int or None (None draws fresh OS entropy)."""
-    if seed is None:
-        return int(np.random.SeedSequence().generate_state(1)[0])
+def is_seed_list(seed) -> bool:
+    """Whether ``seed`` is a list (or array) of per-chain seeds."""
+    return (seed is not None and not isinstance(seed, (int, np.integer))
+            and not isinstance(seed, (str, bytes)) and np.ndim(seed) == 1)
+
+
+def _int_seed(seed) -> int:
     if isinstance(seed, (int, np.integer)) and not isinstance(seed, bool):
         return int(seed)
-    raise NotImplementedError(
-        "only a single int master seed (or None) is supported; per-chain "
-        "seed lists need per-chain Philox streams, which the port does not "
-        "have yet")
+    raise TypeError(f"a seed must be an int, got {seed!r}")
+
+
+def resolve_seed(seed, n_chains=None):
+    """An int seed from an int or None (None draws fresh OS entropy), or a
+    tuple of ints from a list of per-chain seeds.  With ``n_chains`` a
+    list must hold at least that many seeds (else ``ValueError``) and
+    its first ``n_chains`` are used, as the JAX package's
+    ``MultiChainSampler.init`` does."""
+    if seed is None:
+        return int(np.random.SeedSequence().generate_state(1)[0])
+    if not is_seed_list(seed):
+        return _int_seed(seed)
+    seeds = tuple(_int_seed(s) for s in np.asarray(seed, dtype=object))
+    if n_chains is not None:
+        if len(seeds) < int(n_chains):
+            raise ValueError(f"need at least n_chains = {n_chains} seeds, "
+                             f"got {len(seeds)}")
+        seeds = seeds[:int(n_chains)]
+    return seeds
+
+
+def splitmix64(x: int) -> int:
+    """SplitMix64's output for the state ``x`` (Steele, Lea and Flood,
+    OOPSLA 2014; the seeding function of Java's SplittableRandom)."""
+    z = (int(x) + 0x9E3779B97F4A7C15) & M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & M64
+    return z ^ (z >> 31)
+
+
+def chain_keys(seeds) -> np.ndarray:
+    """(N, 2) uint32 Philox keys, row i the low and high words of
+    SplitMix64(seeds[i] mod 2^64)."""
+    keys = np.empty((len(seeds), 2), np.uint32)
+    for i, s in enumerate(seeds):
+        z = splitmix64(int(s) & M64)
+        keys[i] = (z & 0xFFFFFFFF, z >> 32)
+    return keys
+
+
+@dataclasses.dataclass
+class PerChainStreams:
+    """One counter-based stream per chain (module docstring): ``keys``
+    (N, 2) uint32 on the device, ``step`` a (1,) int64 counter on the
+    device.  The sampler calls ``advance`` once a step; the kernels read
+    the counter from device memory, so no draw waits for the host."""
+
+    keys: torch.Tensor
+    step: torch.Tensor
+
+    @classmethod
+    def from_seeds(cls, seeds, device) -> "PerChainStreams":
+        device = torch.device(device)
+        return cls(keys=torch.from_numpy(chain_keys(seeds)).to(device),
+                   step=torch.zeros((1,), dtype=torch.int64, device=device))
+
+    @property
+    def n_chains(self) -> int:
+        return self.keys.shape[0]
+
+    def advance(self) -> None:
+        """Count one step, on the device."""
+        self.step.add_(1)
+
+    def state(self) -> np.ndarray:
+        """uint8 bytes: the step (int64), then the keys (uint32), little
+        endian."""
+        step = self.step.cpu().numpy().astype("<i8")
+        keys = self.keys.cpu().numpy().astype("<u4")
+        return np.concatenate([step.view(np.uint8),
+                               keys.reshape(-1).view(np.uint8)])
+
+    @classmethod
+    def from_state(cls, state, device) -> "PerChainStreams":
+        raw = np.asarray(state, np.uint8)
+        if raw.size < 8 or (raw.size - 8) % 8:
+            raise ValueError(f"a {PER_CHAIN_KIND!r} state is 8 bytes of "
+                             "step and 8 a chain, got "
+                             f"{raw.size} bytes")
+        step = raw[:8].copy().view("<i8").astype(np.int64)
+        keys = raw[8:].copy().view("<u4").astype(np.uint32).reshape(-1, 2)
+        device = torch.device(device)
+        return cls(keys=torch.from_numpy(keys).to(device),
+                   step=torch.from_numpy(step).to(device))
 
 
 def make_generator(seed, device) -> torch.Generator:
-    """One explicit generator on ``device`` seeded from ``seed``."""
+    """One explicit generator on ``device`` seeded from an int ``seed``."""
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(resolve_seed(seed))
     return gen
@@ -66,21 +167,27 @@ def generator_kind(device) -> str:
     return GENERATOR_KINDS[dev.type]
 
 
-def generator_state(gen: torch.Generator):
-    """``(kind, state)``: the generator's kind and its full state as a
-    uint8 numpy array (``get_state``)."""
+def generator_state(gen):
+    """``(kind, state)``: the stream's kind and its full state as a uint8
+    numpy array (a generator's ``get_state``, or
+    ``PerChainStreams.state``)."""
+    if isinstance(gen, PerChainStreams):
+        return PER_CHAIN_KIND, gen.state()
     return (generator_kind(gen.device),
             gen.get_state().numpy().astype(np.uint8, copy=True))
 
 
-def restore_generator(kind: str, state, device) -> torch.Generator:
-    """A generator on ``device`` continuing the stream ``(kind, state)``
-    describes; a state of another kind than the device's raises."""
-    want = generator_kind(device)
+def restore_generator(kind: str, state, device, want=None):
+    """The stream on ``device`` continuing the one ``(kind, state)``
+    describes.  ``want`` is the kind the caller owns (default: the
+    device's generator kind); a state of another kind raises."""
+    want = generator_kind(device) if want is None else want
     if kind != want:
-        raise ValueError(f"the generator state is {kind!r}, but a sampler "
-                         f"on {torch.device(device)} owns a {want!r} "
-                         "generator: a stream cannot move between them")
+        raise ValueError(f"the generator state is {kind!r}, but the sampler "
+                         f"on {torch.device(device)} owns a {want!r} stream: "
+                         "a stream cannot move between kinds")
+    if kind == PER_CHAIN_KIND:
+        return PerChainStreams.from_state(state, device)
     gen = torch.Generator(device=torch.device(device))
     gen.set_state(torch.from_numpy(np.asarray(state, np.uint8).copy()))
     return gen

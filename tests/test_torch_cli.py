@@ -2,8 +2,8 @@
 farm drivers (``drivers.py``), their share of tests/test_cli.py and
 tests/test_drivers.py, at 48 x 48 on the CPU (``--device cpu``).
 
-The configs are tests/test_cli.py's, with an int master seed (the port
-refuses per-chain seed lists) and, for the SGS family, the spherical
+The configs are tests/test_cli.py's, with an int master seed (seed lists
+are tests/test_torch_seeds.py's) and, for the SGS family, the spherical
 variogram whose packed solve is the CG on a given Sigma.
 """
 
@@ -219,8 +219,8 @@ def test_toml_config_and_errors(tmp_path):
     with pytest.raises(ValueError, match="family"):
         cli.build_experiment(bad, tmp_path)
     seeds = _crf_config()
-    seeds["farm"]["rng_seeds"] = [1, 2]
-    with pytest.raises(NotImplementedError, match="seed"):
+    seeds["farm"]["rng_seeds"] = [1]  # a list needs a seed a chain
+    with pytest.raises(ValueError, match="n_chains"):
         cli.run(seeds, config_dir=tmp_path, quiet=True, device="cpu")
 
 

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-CRF window kernel and Philox noise, and the SGS window extract and
-writeback, the two packed CG solves (mixture system, given Sigma) and the
-inverse LUT.
+CRF window kernel and Philox noise (and its keyed entry), the SGS window
+extract and writeback, the two packed CG solves (mixture system, given
+Sigma), the inverse LUT, and the per-chain draw kernel of seed-listed
+farms.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -23,7 +24,11 @@ from mcmc_tpu_torch.ops.cg_kernel import (cg_kernel_info, kernel_max_k,
                                           mix_masked_cg_reference)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
 from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
+from mcmc_tpu_torch.ops.chain_draws import (SLOTS, DrawPlan, chain_draws,
+                                            chain_draws_reference, entry)
 from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                             batched_normal_keyed,
+                                             batched_normal_keyed_reference,
                                              batched_normal_reference)
 from mcmc_tpu_torch.ops.sgs_window_kernel import (WINDOW_KERNELS,
                                                   sgs_window_kernel_info,
@@ -36,7 +41,7 @@ from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
                                               window_kernel_info)
 from mcmc_tpu_torch.testing import (edge_window_operands,
                                     sgs_window_operands)
-from mcmc_tpu_torch.utils.rng import make_generator
+from mcmc_tpu_torch.utils.rng import PerChainStreams, make_generator
 from tests.torch_helpers import (assert_delta_close, block_losses,
                                  small_chain, small_problem, small_sgs_chain)
 
@@ -524,3 +529,120 @@ def test_crf_sampler_with_kernel_noise(cuda_device):
     assert np.isfinite(tr_f["loss"]).all()
     assert tr_f["loss"][:, -1].mean() < tr_f["loss"][:, 0].mean()
     assert (tr_f["step"] == tr_e["step"]).mean() > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [4 * 997, 4 * 997 + 1, 4 * 997 + 2,
+                                   4 * 997 + 3, 1, 2, 3])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3],
+                         ids=["aligned", "x[1:]", "x[2:]", "x[3:]"])
+def test_lut_kernel_tails_and_alignment(cuda_device, count, offset):
+    """Bitwise against the plain version where count % 4 leaves a tail and
+    where x starts 4, 8 or 12 bytes past a 16-byte boundary (a scalar
+    head; y, freshly allocated, then takes scalar stores): NaN, the
+    table's ends and values beyond them included."""
+    _, consts, _, _, _, _ = _sgs_step_operands(cuda_device)
+    nst = consts.nst
+    gen = make_generator(4, cuda_device)
+    base = torch.rand((count + offset,), generator=gen,
+                      device=cuda_device) * 16.0 - 8.0
+    base[::7] = float("nan")
+    base[1::11] = 1e9
+    base[2::13] = -1e9
+    x = base[offset:]
+    assert x.data_ptr() % 16 == 4 * offset
+    got = lut_interp(x, nst.inv_lo, nst.inv_scale, nst.inv_table)
+    want = lut_interp_reference(x, nst.inv_lo, nst.inv_scale,
+                                nst.inv_table)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+def _streams(seeds, step, device):
+    s = PerChainStreams.from_seeds(seeds, device)
+    s.step.fill_(step)
+    return s
+
+
+DRAW_PLANS = {
+    "crf": (entry("size_idx", "index", n=25), entry("scale", "uniform"),
+            entry("nugget", "uniform"), entry("range_x", "uniform"),
+            entry("cidx", "index", n=222_784), entry("u", "uniform")),
+    "sgs": (entry("cidx", "index", n=222_784),
+            entry("bsx", "index", n=15, lo=5),
+            entry("bsy", "index", n=15, lo=5),
+            entry("noise", "normal", 6400 + 1296),
+            entry("drop_u", "uniform", 1296), entry("u", "uniform")),
+    "odd": (entry("u", "uniform", 7), entry("cidx", "index", 5, n=1000,
+                                            lo=-3),
+            entry("bsx", "index", 3, n=2 ** 32 - 1),
+            entry("noise", "normal", 9), entry("drop_u", "uniform", 1),
+            entry("nugget_noise", "normal", 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", list(DRAW_PLANS))
+@pytest.mark.parametrize("step", [0, 7, (5 << 32) + 3])
+def test_chain_draws_kernel_bitwise(cuda_device, plan, step):
+    """Every value of a plan bitwise against the plain version, at steps
+    whose high word is 0 and not; a chain's values its own."""
+    plan = DrawPlan(DRAW_PLANS[plan])
+    seeds = list(range(100, 100 + N))
+    s = _streams(seeds, step, cuda_device)
+    before = chain_draws.launches
+    got = plan.views(*chain_draws(s.keys, s.step, plan))
+    assert chain_draws.launches == before + 1
+    want = plan.views(*chain_draws_reference(s.keys, s.step, plan))
+    alone = _streams(seeds[5:6], step, cuda_device)
+    one = plan.views(*chain_draws(alone.keys, alone.step, plan))
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+        assert torch.equal(got[name][5:6], one[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 160, 41), (5, 18, 7), (3, 2, 300),
+                                   (70_000, 2, 2)],
+                         ids=["one-chain", "odd-pairs", "ragged-block",
+                              "many-chains"])
+def test_keyed_noise_kernel_bitwise(cuda_device, shape):
+    """The keyed entry bitwise against its plain version; the single-seed
+    entry's bits unchanged beside it."""
+    n, rows, cols = shape
+    s = _streams(list(range(n)), (1 << 32) + 11, cuda_device)
+    before = batched_normal_keyed.launches
+    slot = SLOTS["spectrum"]
+    got = batched_normal_keyed(s.keys, s.step, slot, rows, cols)
+    assert batched_normal_keyed.launches == before + 1
+    assert torch.equal(got, batched_normal_keyed_reference(s.keys, s.step,
+                                                           slot, rows, cols))
+    seed = torch.tensor([0x0FEDCBA987654321], dtype=torch.int64,
+                        device=cuda_device)
+    assert torch.equal(batched_normal(seed, *shape),
+                       batched_normal_reference(seed, *shape))
+
+
+@pytest.mark.cuda
+def test_list_seeded_samplers_launch_the_draw_kernels(cuda_device):
+    """A seed-listed farm of each family makes one draw-kernel launch a
+    step (and the CRF one keyed-noise launch), and none of the single-seed
+    noise entry; chain 1 of the farm draws the blocks (centres and sizes,
+    drawn) of the 1-chain farm seeded with its seed."""
+    seeds = [3, 1, 4, 1 + N]
+    for chain, keyed in ((small_chain(small_problem()), 20),
+                         (small_sgs_chain(small_problem()), 0)):
+        sampler = MultiChainSampler(chain, 4, device=cuda_device)
+        chain_draws.launches = batched_normal_keyed.launches = 0
+        batched_normal.launches = 0
+        _, tr = sampler.run(sampler.init(seeds=seeds), 21, segment_size=10,
+                            progress=False)
+        assert chain_draws.launches == 20
+        assert batched_normal_keyed.launches == keyed
+        assert batched_normal.launches == 0
+        assert np.isfinite(tr["loss"]).all()
+        one = MultiChainSampler(chain, 1, device=cuda_device)
+        _, tr1 = one.run(one.init(seeds=seeds[1:2]), 21, segment_size=10,
+                         progress=False)
+        np.testing.assert_array_equal(tr["block"][1], tr1["block"][0])

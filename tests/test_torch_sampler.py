@@ -173,8 +173,13 @@ def test_init_options(chains):
     assert torch.equal(shared.bed[2], shared.bed[0])
     with pytest.raises(ValueError, match="n_chains"):
         sampler.init(initial_beds=beds[:2], seeds=0)
-    with pytest.raises(NotImplementedError, match="Philox"):
-        sampler.init(seeds=[1, 2, 3])
+    # a per-chain seed list, by the JAX sampler's rules: at least
+    # n_chains seeds, the first n_chains used
+    with pytest.raises(ValueError, match="n_chains"):
+        sampler.init(seeds=[1, 2])
+    listed = sampler.init(initial_beds=beds, seeds=[1, 2, 3, 4])
+    assert sampler.generator.n_chains == 3
+    assert torch.equal(listed.bed, st.bed)
 
 
 def test_impl_is_checked(chains):
