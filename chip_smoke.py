@@ -94,7 +94,32 @@ line or more each:
 15. the entry point with a seed list (``[entry-list]``, after phase 11):
    the Matérn SGS headline through ``mcmc_tpu_torch.cli.main`` with a
    512-seed ``rng_seeds`` list, 400 iterations resumed to 600, bitwise
-   equal to an uninterrupted 600, one draw-kernel launch a step.
+   equal to an uninterrupted 600, one draw-kernel launch a step;
+16. the single-chain run API (``[run]``): ``ChainCRF.run(1000)`` (beds
+   saved) and ``ChainSGS.run(400)`` at the headline's width, one chain
+   seeded [1000], each kernel of the path once a step: traces bitwise the
+   1-chain farm seeded [1000], draws bitwise chain 0's in the headline
+   farm seeded [1000, ...] (that chain's traces compared and printed),
+   bitwise the same with ``progress_bar`` every 100 iterations and (CRF)
+   with a ``RandField`` configured like the chain, a second run
+   continuing the stream, (CRF) the last saved bed the final state's,
+   the loss finite and falling, acceptance in (0.02, 0.98); it/s and a
+   profiled window; then every kernel of each path at one chain against
+   its plain version over 10 steps, timed beside an empty kernel on the
+   same number of CTAs;
+17. bed snapshots and the profiler (``[collect]``): ``run(collect_beds=
+   True, profile_dir=...)`` at 768 CRF chains (3 segments) and 512 SGS
+   chains (2): ``bed_thin`` (n_chains, n_segments, 512, 512) ending on
+   the final full-space bed bitwise, and one Chrome trace, of the second
+   segment, naming the family's window kernel;
+18. geostatistics (``[geostats]``, the T2 workflow at full width):
+   ``fit_variogram`` on the radar picks, two ``generate_initial_beds``
+   at 512^2 (exponential fit, bounded below the surface): data honoured
+   within 1 m, the bounds kept, the seeds' beds different and the same
+   seed's bitwise; ``krige`` at 512^2; the same call on a 128^2 cut on
+   the card and on the CPU within 5e-2 m; the beds as a 2-chain CRF
+   farm's initial beds for 50 steps; seconds a bed, host ms a chunk and
+   the device-idle share of 20 profiled chunks.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -110,7 +135,9 @@ time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger)
 and, where one PyTorch call computes the same function, that call's
-time.  The last line is the JSON contract ``{"ok": true, "device": ...}``.
+time.  Phases 16-18 run last and count their own launches, so the line's
+``launches`` are those of the paths above.  The last line is the JSON
+contract ``{"ok": true, "device": ...}``.
 """
 
 import contextlib
@@ -152,6 +179,16 @@ DRAW_STEPS = 10          # [draws]: recorded steps of the per-chain draws
 SEED_STEPS = 50          # [independence]: steps of each pair of farms
 SEED_RATE_STEPS = {"crf": 300, "sgs": 200}  # [seeds]: timed steps a run
 ENTRY_LIST_ITERS = (400, 600)  # [entry-list]: run, then resume to
+RUN_ITERS = {"crf": 1000, "sgs": 400}  # [run]: each single-chain run
+RUN_INFO = 100           # [run]: info_per_iter of the observed run
+RUN_KERNEL_STEPS = 10    # [run]: recorded steps of the one-chain kernels
+RUN_PROFILE_STEPS = 50   # [run]: profiled single-chain steps
+COLLECT_RUNS = {"crf": (301, 100), "sgs": (201, 100)}  # n_iter, segment
+GEO_KW = dict(radius=50e3, num_points=32, chunk=64, half_window=40)
+GEO_SEED = 11            # [geostats]: the first bed's seed
+GEO_CUT = 128            # [geostats]: the card-vs-CPU cut of the grid
+GEO_PROFILE_CHUNKS = 20
+GEO_FARM_STEPS = 50
 ROOT = Path(__file__).resolve().parent
 # (wrapper, source under mcmc_tpu_torch/ops/csrc, the Pallas kernel it
 # replaces): every function of the JAX package that reaches pallas_call
@@ -194,6 +231,12 @@ NOISE_CAP = 5.8872       # sqrt(-2 ln 2^-25) = sqrt(50 ln 2), the tail cap
 NOISE_CORR_MAX = 0.08    # largest cross-chain |corr| over 64 chains
 NOISE_MOMENT_TOL = 0.01  # |mean| and |std - 1| of all the normals
 NOISE_ODD_SHAPE = (5, 18, 7)  # 63 pairs a chain: odd
+# geostats: the data honoured as tests/test_geostats.py:38 holds the JAX
+# package; the bounds to rounding; the card against the CPU, the same
+# picks and draws with float32 kriging solves apart
+GEO_DATA_ATOL = 1.0      # m
+GEO_BOUND_ATOL = 1e-3    # m
+GEO_CPU_ATOL = 5e-2      # m
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -814,11 +857,17 @@ def _mix_cg_vs_float64(static, prep, card):
                    card)
 
 
-def phase_sgs_kernels_vs_plain(chain, card):
-    """The four SGS kernels against their plain versions through the
-    step's stages, at the headline, the state advancing on the kernels'
-    results; a plain step from the same state and draws counts the MH
-    decisions that flip."""
+def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
+                      f64=False):
+    """``n_steps`` SGS steps through the step's stages with each of the
+    four kernels beside its plain version on the same operands, the state
+    advancing on the kernels' results; ``gen`` a generator or per-chain
+    streams (advanced a step at a time).  Returns (state, max abs errors,
+    counts (CG values beyond rtol/atol, MH flips against a plain step from
+    the same state and draws, LUT values that differ and their largest
+    ulp distance), each kernel's recorded operands, and (bytes, flops)
+    each launch must move and do).  ``f64``: the first step's CG also
+    against a float64 solve."""
     import torch
 
     from mcmc_tpu_torch.models import chain_sgs as sgs
@@ -829,22 +878,10 @@ def phase_sgs_kernels_vs_plain(chain, card):
     from mcmc_tpu_torch.ops.sgs_window_kernel import (
         window_extract, window_extract_reference, window_writeback,
         window_writeback_reference)
-    from mcmc_tpu_torch.utils.rng import make_generator
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
 
-    dev = torch.device(DEVICE)
-    static, consts = chain.build(dev)
-    if not (static.mix and static.use_transform):
-        raise RuntimeError("the SGS headline must take the mixture CG and "
-                           "the normal-score transform")
-    print(f"[sgs-parity] SB {static.SB}, M {static.M}, K {static.K}, NE "
-          f"{static.NE}, NA {static.NA}, Mg {static.Mg}, Me {static.Me}, "
-          f"cg_iters {static.cg_iters}, n_region {static.n_region}, "
-          f"inverse table {tuple(consts.nst.inv_table.shape)}", flush=True)
-    N, SB, nst = SGS_CHAINS, static.SB, consts.nst
-    state = sgs.sgs_init_state(chain._initial_detrended, consts,
-                               chain._initial_z, True, N)
+    N, SB, nst = state.fields.shape[0], static.SB, consts.nst
     plain_step = sgs.make_sgs_kernel(static, "eager")
-    gen = make_generator(11, dev)
     err = dict(extract=0.0, writeback=0.0, cg=0.0, lut=0.0)
     cg_viol = n_flip = n_lut_diff = 0
     lut_ulp = 0
@@ -852,7 +889,7 @@ def phase_sgs_kernels_vs_plain(chain, card):
     work = dict(extract=[], writeback=[], cg=[], lut=[])  # (bytes, flops)
     K, H, W = static.K, static.H, static.W
     table_bytes = 4 * nst.inv_table.numel()
-    for it in range(SGS_PARITY_STEPS):
+    for it in range(n_steps):
         d = sgs.draw(gen, static, consts, N)
         draws = (d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
         _, tr_plain = plain_step(consts, _clone_state(state), *draws)
@@ -874,7 +911,7 @@ def phase_sgs_kernels_vs_plain(chain, card):
         diff = (w - w_p).abs()
         err["cg"] = max(err["cg"], float(diff.max()))
         cg_viol += int((diff > CG_ATOL + CG_RTOL * w_p.abs()).sum())
-        if it == 0:
+        if it == 0 and f64:
             _mix_cg_vs_float64(static, prep, card)
         z_new, z_cache = sgs.draw_z(static, consts, prep, w, d.noise)
         args = (z_new, nst.inv_lo, nst.inv_scale, nst.inv_table)
@@ -912,6 +949,48 @@ def phase_sgs_kernels_vs_plain(chain, card):
                                    11 + 3 * (static.Mg + static.Me),
                                    4 * (4 * K + 1)))
         work["lut"].append((4.0 * 2 * N * SB * SB + table_bytes, 0.0))
+        if isinstance(gen, PerChainStreams):
+            gen.advance()
+    stats = dict(cg_viol=cg_viol, n_flip=n_flip, n_lut_diff=n_lut_diff,
+                 lut_ulp=lut_ulp)
+    return state, err, stats, ops, work
+
+
+def phase_sgs_kernels_vs_plain(chain, card):
+    """The four SGS kernels against their plain versions through the
+    step's stages, at the headline, the state advancing on the kernels'
+    results; a plain step from the same state and draws counts the MH
+    decisions that flip."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
+                                              mix_masked_cg_reference)
+    from mcmc_tpu_torch.ops.lut_kernel import (lut_interp,
+                                               lut_interp_reference)
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (
+        window_extract, window_extract_reference, window_writeback,
+        window_writeback_reference)
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    dev = torch.device(DEVICE)
+    static, consts = chain.build(dev)
+    if not (static.mix and static.use_transform):
+        raise RuntimeError("the SGS headline must take the mixture CG and "
+                           "the normal-score transform")
+    print(f"[sgs-parity] SB {static.SB}, M {static.M}, K {static.K}, NE "
+          f"{static.NE}, NA {static.NA}, Mg {static.Mg}, Me {static.Me}, "
+          f"cg_iters {static.cg_iters}, n_region {static.n_region}, "
+          f"inverse table {tuple(consts.nst.inv_table.shape)}", flush=True)
+    N, SB = SGS_CHAINS, static.SB
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, N)
+    gen = make_generator(11, dev)
+    state, err, stats, ops, work = _sgs_kernel_steps(
+        static, consts, state, gen, SGS_PARITY_STEPS, card, f64=True)
+    cg_viol, n_flip = stats["cg_viol"], stats["n_flip"]
+    n_lut_diff, lut_ulp = stats["n_lut_diff"], stats["lut_ulp"]
+    K = static.K
     flip_rate = n_flip / (SGS_PARITY_STEPS * N)
     n_lut = SGS_PARITY_STEPS * N * SB * SB
     print(f"[sgs-parity] {SGS_PARITY_STEPS} steps x {N} chains: extract and "
@@ -1659,7 +1738,7 @@ def phase_draws_vs_plain(crf_chain, sgs_chain, card):
               f"bitwise equal to the plain version (bound 0) | per launch: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.rand of "
               f"({n}, {plan.floats}) {library_ms:.4f} ms | bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB) = "
+              f"{bound_ms:.3e} ms by {bound_by} ({moved:,.0f} bytes) = "
               f"{bound_ms / ms:.3f} of the kernel's time ({card}; CUDA "
               f"events)", flush=True)
         if n_diff:
@@ -1925,6 +2004,593 @@ def phase_entry_seed_list(p, card):
         raise RuntimeError(f"kernel launches {launches} in {steps} steps")
 
 
+def _run_kernels(family):
+    """The kernels a list-seeded single-chain run of ``family`` launches,
+    each once a step."""
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.lut_kernel import lut_interp
+    from mcmc_tpu_torch.ops.noise_kernel import batched_normal_keyed
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+                                                      window_writeback)
+    from mcmc_tpu_torch.ops.window_kernel import fused_window_update
+
+    if family == "crf":
+        return (fused_window_update, batched_normal_keyed, chain_draws)
+    return (window_extract, window_writeback, mix_masked_cg, lut_interp,
+            chain_draws)
+
+
+# (farm trace, run dict key) pairs a single-chain run returns
+RUN_TRACES = (("loss", "loss"), ("loss_mc", "loss_mc"),
+              ("loss_data", "loss_data"), ("step", "steps"),
+              ("block", "blocks"))
+
+
+def _run_matches_farm(out, traces, chain):
+    """Whether a single-chain run's traces equal chain ``chain`` of a
+    farm's, bit for bit (NaN blocks of row 0 equal)."""
+    return all(np.array_equal(out[name], traces[k][chain],
+                              equal_nan=out[name].dtype.kind == "f")
+               for k, name in RUN_TRACES)
+
+
+def _runs_equal(a, b):
+    """Two single-chain run dicts equal bit for bit, final states aside."""
+    return set(a) == set(b) and all(
+        np.array_equal(a[k], b[k], equal_nan=a[k].dtype.kind == "f")
+        for k in a if k != "final_state")
+
+
+def _randfield_like(chain):
+    """A ``RandField`` wrapper configured as the CRF chain is."""
+    from mcmc_tpu_torch.models.randfield import RandField
+
+    cfg, blocks, w = chain._rf_cfg, chain._block_cfg, chain._weight_cfg
+    rf = RandField(cfg.range_min_x, cfg.range_max_x, cfg.range_min_y,
+                   cfg.range_max_y, cfg.scale_min, cfg.scale_max,
+                   cfg.nugget_max, cfg.model_name, cfg.isotropic,
+                   cfg.smoothness, device=DEVICE)
+    rf.set_block_sizes(blocks.min_block_x, blocks.max_block_x,
+                       blocks.min_block_y, blocks.max_block_y, blocks.steps)
+    rf.set_weight_param(w.L, w.x0, w.k, w.offset, w.max_dist, w.resolution)
+    return rf
+
+
+def _draws_vs_chain0(chain, n, steps):
+    """Over ``steps`` step counters, how many of the 1-chain stream
+    [s]'s draw values differ from chain 0's in the n-chain stream [s, s +
+    1, ...], and how many were compared."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_crf as crf
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    static, consts = chain.build(DEVICE)
+    draw = sgs.draw if isinstance(chain, sgs.ChainSGS) else crf.draw
+    one = PerChainStreams.from_seeds(_seed_list(1), DEVICE)
+    many = PerChainStreams.from_seeds(_seed_list(n), DEVICE)
+    n_diff = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    n_values = 0
+    for _ in range(steps):
+        a = _draw_fields(draw(one, static, consts, 1))
+        b = _draw_fields(draw(many, static, consts, n))
+        for name, v in a.items():
+            n_diff += (v[0] != b[name][0]).sum()
+            n_values += v[0].numel()
+        one.advance()
+        many.advance()
+    return int(n_diff), n_values
+
+
+def _plan_diff(keys, step, plan):
+    """How many of a draw plan's values (its views: the buffers' unused
+    slots are not values) the draw kernel and its plain version give
+    differently."""
+    from mcmc_tpu_torch.ops.chain_draws import (chain_draws,
+                                                chain_draws_reference)
+
+    got = plan.views(*chain_draws(keys, step, plan))
+    want = plan.views(*chain_draws_reference(keys, step, plan))
+    return sum(int((got[k] != w).sum()) for k, w in want.items())
+
+
+def _empty_floor(ctas, n):
+    """ms per launch of an empty kernel on ``ctas`` CTAs of 256 threads,
+    timed as the kernels are (``_time_ops`` over ``n`` launches, twice)."""
+    from mcmc_tpu_torch.ops.lut_kernel import empty_launch
+
+    return float(np.mean([_time_ops(lambda: empty_launch(ctas), [()] * n)
+                          for _ in range(2)]))
+
+
+def _one_chain_times(family, pairs, card):
+    """Each kernel's ms per launch at one chain (plain / kernel / kernel /
+    plain over its recorded operands) beside an empty launch on its grid;
+    ``pairs`` maps a name to (plain, kernel, recorded, CTAs)."""
+    rows = {}
+    for name, (plain, kernel, recorded, ctas) in pairs.items():
+        plain_ms, ms = _pair_times(plain, kernel, recorded)
+        floor_ms = _empty_floor(ctas, len(recorded))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, floor_ms=floor_ms,
+                          ctas=ctas)
+        print(f"[run] {family} at one chain, {name}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms per launch | an empty kernel on "
+              f"its {ctas} CTA(s) {floor_ms:.4f} ms: the kernel is "
+              f"{ms / floor_ms:.2f}x the floor ({card}; CUDA events, "
+              f"{len(recorded)} launches x 2 each)", flush=True)
+    return rows
+
+
+def _crf_one_chain_kernels(chain, card):
+    """The CRF single-chain path's kernels against their plain versions at
+    one chain over RUN_KERNEL_STEPS steps of the stream [s]: the draw
+    kernel and the keyed noise bitwise, the window kernel by MH flips
+    (the headline's bounds), the state advancing on the kernel; then
+    their times beside the launch floor."""
+    from mcmc_tpu_torch.models import chain_crf as crf
+    from mcmc_tpu_torch.ops.chain_draws import (SLOTS, cached_plan,
+                                                chain_draws,
+                                                chain_draws_reference)
+    from mcmc_tpu_torch.ops.noise_kernel import (
+        batched_normal_keyed, batched_normal_keyed_reference)
+    from mcmc_tpu_torch.ops.window_kernel import (
+        fused_window_update, fused_window_update_reference)
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    static, consts = chain.build(DEVICE)
+    state = crf.init_state(chain.initial_bed, consts, 1)
+    streams = PerChainStreams.from_seeds(_seed_list(1), DEVICE)
+    plan = cached_plan(crf.draw_plan_entries(static))
+    B = static.rf.B
+    n_diff = n_flip = field_viol = 0
+    delta_rel = 0.0
+    ops = dict(window=[], noise=[], draws=[])
+    for _ in range(RUN_KERNEL_STEPS):
+        step = streams.step.clone()
+        n_diff += _plan_diff(streams.keys, step, plan)
+        nargs = (streams.keys, step, SLOTS["spectrum"], 2 * B, B // 2 + 1)
+        n_diff += int((batched_normal_keyed(*nargs)
+                       != batched_normal_keyed_reference(*nargs)).sum())
+        d = crf.draw(streams, static, consts, 1)
+        f = crf.propose(static, consts, d).contiguous()
+        cx = consts.region_cells[d.cidx, 0]
+        cy = consts.region_cells[d.cidx, 1]
+        geom, fvals = crf.window_operands(static, consts, state, d.size_idx,
+                                          d.scale, cx, cy, d.u)
+        old = state.fields.clone()
+        plain = old.clone()
+        args = (f, consts.rf.edge_masks, geom, fvals)
+        acc_k, dk, ddk = fused_window_update(consts.stacked, state.fields,
+                                             *args)
+        acc_p, dp, ddp = fused_window_update_reference(consts.stacked, plain,
+                                                       *args)
+        same = acc_k == acc_p
+        n_flip += int((~same).sum())
+        if bool(same.all()):
+            scale = _block_losses(old, geom, consts)
+            err = ((dk.double() - dp.double()).abs()
+                   / (scale + dp.double().abs() + 1e-12))
+            delta_rel = max(delta_rel, float(err.max()))
+            diff = (state.fields - plain).abs()
+            field_viol += int((diff > FIELD_ATOL
+                               + FIELD_RTOL * plain.abs()).sum())
+        state.loss_mc = state.loss_mc + dk
+        state.loss_data = state.loss_data + ddk
+        ops["window"].append(args)
+        ops["noise"].append(nargs)
+        ops["draws"].append((streams.keys, step))
+        streams.advance()
+    print(f"[run] crf at one chain, {RUN_KERNEL_STEPS} steps of the stream "
+          f"[{_seed_list(1)[0]}]: draw kernel and keyed noise {n_diff} "
+          f"values not bitwise equal to their plain versions (bound 0) | "
+          f"window kernel MH flips {n_flip}/{RUN_KERNEL_STEPS} (bound "
+          f"{FLIP_RATE_MAX:g} of decisions), max delta err / block loss "
+          f"{delta_rel:.3e} (bound {DELTA_REL_MAX:g}), {field_viol} cells "
+          f"beyond rtol {FIELD_RTOL:g} / atol {FIELD_ATOL:g}", flush=True)
+    if (n_diff or n_flip > FLIP_RATE_MAX * RUN_KERNEL_STEPS
+            or delta_rel > DELTA_REL_MAX or field_viol):
+        raise RuntimeError("a CRF kernel disagrees with its plain version "
+                           "at one chain")
+    scratch = state.fields.clone()
+    window = [(consts.stacked, scratch) + a for a in ops["window"]]
+    noise_calls = (B * (B // 2 + 1) + 1) // 2  # Philox calls a chain
+    return _one_chain_times("crf", {
+        # grids at one chain: 1 CTA; (1, calls / 128); calls / 256
+        "fused_window_update": (fused_window_update_reference,
+                                fused_window_update, window, 1),
+        "batched_normal_keyed": (batched_normal_keyed_reference,
+                                 batched_normal_keyed, ops["noise"],
+                                 -(-noise_calls // 128)),
+        "chain_draws": (lambda k, t: chain_draws_reference(k, t, plan),
+                        lambda k, t: chain_draws(k, t, plan), ops["draws"],
+                        -(-plan.calls // 256)),
+    }, card)
+
+
+def _sgs_one_chain_kernels(chain, card):
+    """The SGS single-chain path's kernels against their plain versions at
+    one chain over RUN_KERNEL_STEPS steps of the stream [s], through the
+    headline's stages (``_sgs_kernel_steps``) and bounds, and the draw
+    kernel bitwise at the same step counters; then their times beside the
+    launch floor.  At K = 48 a CG CTA packs 4 chains, so 3 of its 4 warps
+    have none."""
+    import torch
+
+    from mcmc_tpu_torch.models import chain_sgs as sgs
+    from mcmc_tpu_torch.ops.cg_kernel import (cg_kernel_info, mix_masked_cg,
+                                              mix_masked_cg_reference)
+    from mcmc_tpu_torch.ops.chain_draws import (cached_plan, chain_draws,
+                                                chain_draws_reference)
+    from mcmc_tpu_torch.ops.lut_kernel import (lut_interp,
+                                               lut_interp_reference,
+                                               lut_kernel_info)
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (
+        window_extract, window_extract_reference, window_writeback,
+        window_writeback_reference)
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    static, consts = chain.build(DEVICE)
+    state = sgs.sgs_init_state(chain._initial_detrended, consts,
+                               chain._initial_z, True, 1)
+    streams = PerChainStreams.from_seeds(_seed_list(1), DEVICE)
+    plan = cached_plan(sgs.draw_plan_entries(static, consts))
+    steps = [torch.tensor([t], dtype=torch.int64, device=DEVICE)
+             for t in range(RUN_KERNEL_STEPS)]
+    n_diff = 0
+    for step in steps:
+        n_diff += _plan_diff(streams.keys, step, plan)
+    state, err, stats, ops, _ = _sgs_kernel_steps(
+        static, consts, state, streams, RUN_KERNEL_STEPS, card)
+    print(f"[run] sgs at one chain, {RUN_KERNEL_STEPS} steps of the stream "
+          f"[{_seed_list(1)[0]}]: extract and writeback bitwise | draw "
+          f"kernel {n_diff} values not bitwise equal (bound 0) | CG max abs "
+          f"err {err['cg']:.3e}, {stats['cg_viol']} values beyond rtol/atol "
+          f"{CG_RTOL:g} | LUT {stats['n_lut_diff']} values differ, at most "
+          f"{stats['lut_ulp']} ulp (bound {LUT_ULP_MAX}) | MH flips against "
+          f"a plain step {stats['n_flip']}/{RUN_KERNEL_STEPS}", flush=True)
+    if (n_diff or stats["cg_viol"] or stats["lut_ulp"] > LUT_ULP_MAX
+            or stats["n_flip"] > FLIP_RATE_MAX * RUN_KERNEL_STEPS):
+        raise RuntimeError("an SGS kernel disagrees with its plain version "
+                           "at one chain")
+    scratch = state.fields.clone()
+    cpb = cg_kernel_info(static.K, True)["chains_per_cta"]
+    return _one_chain_times("sgs", {
+        # grids at one chain: (1, 14 planes), (1, 4 planes), 1 CTA of
+        # ``cpb`` chain slots, the LUT's own, calls / 256
+        "window_extract": (window_extract_reference, window_extract,
+                           ops["extract"], consts.stacked.shape[0]
+                           + state.fields.shape[1]),
+        "window_writeback": (
+            lambda *a: window_writeback_reference(scratch, *a),
+            lambda *a: window_writeback(scratch, *a), ops["writeback"],
+            state.fields.shape[1]),
+        "mix_masked_cg": (mix_masked_cg_reference, mix_masked_cg, ops["cg"],
+                          -(-1 // cpb)),
+        "lut_interp": (lut_interp_reference, lut_interp, ops["lut"],
+                       lut_kernel_info(ops["lut"][0][0])["ctas"]),
+        "chain_draws": (lambda k, t: chain_draws_reference(k, t, plan),
+                        lambda k, t: chain_draws(k, t, plan),
+                        [(streams.keys, t) for t in steps],
+                        -(-plan.calls // 256)),
+    }, card)
+
+
+def phase_run(p, card):
+    """[run]: ``ChainCRF.run`` / ``ChainSGS.run`` at the headline's width,
+    one chain seeded [s] (each run's launches counted from 0 just before
+    it and read just after: every kernel of the path once a step).
+    Checks: the traces equal the 1-chain farm seeded [s] bit for bit, the
+    draws chain 0's in the headline farm seeded [s, s + 1, ...] (whether
+    that farm's chain 0 traces are bitwise too is printed, not gated);
+    ``progress_bar`` with ``info_per_iter`` changes no bit; (CRF) a
+    ``RandField`` configured like the chain changes no bit; a second run
+    continues the stream and differs; (CRF) the last saved bed is the
+    final state's; the loss is finite and falls, acceptance in (0.02,
+    0.98).  Prints single-chain it/s, the device-idle share over
+    RUN_PROFILE_STEPS profiled steps, and each kernel at one chain
+    against its plain version and the launch floor."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+
+    seed = _seed_list(1)[0]
+    rows = {}
+    for family, make, n_farm in (("crf", make_chain, N_CHAINS),
+                                 ("sgs", make_sgs_chain, SGS_CHAINS)):
+        chain = make(p)
+        n_iter = RUN_ITERS[family]
+        steps = n_iter - 1
+        is_crf = family == "crf"
+        kernels = _run_kernels(family)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = chain.run(n_iter, seed=seed, save_beds=is_crf, device=DEVICE)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        farm = MultiChainSampler(chain, 1, device=DEVICE)
+        state1, tr1 = farm.run(farm.init(seeds=[seed]), n_iter,
+                               segment_size=steps, progress=False)
+        checks = {"farm [s]": _run_matches_farm(out, tr1, 0)}
+        n_diff, n_values = _draws_vs_chain0(chain, n_farm, steps)
+        checks[f"draws = chain 0 of {n_farm}"] = n_diff == 0
+        big = MultiChainSampler(chain, n_farm, device=DEVICE)
+        _, trn = big.run(big.init(seeds=_seed_list(n_farm)), n_iter,
+                         segment_size=steps, progress=False)
+        big_traces = _run_matches_farm(out, trn, 0)
+        del big, trn
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            seen = chain.run(n_iter, seed=seed, save_beds=is_crf,
+                             progress_bar=True, info_per_iter=RUN_INFO,
+                             device=DEVICE)
+        progress = buf.getvalue().strip().splitlines()
+        checks["observers"] = (_runs_equal(out, seen)
+                               and len(progress) == -(-steps // RUN_INFO))
+        if is_crf:
+            checks["RandField"] = _runs_equal(out, chain.run(
+                n_iter, _randfield_like(chain), seed=seed, save_beds=True,
+                device=DEVICE))
+        second = chain.run(n_iter, device=DEVICE)
+        checks["second run differs"] = not np.array_equal(second["loss"],
+                                                          out["loss"])
+        if is_crf:
+            checks["last bed = final"] = np.array_equal(
+                out["bed"][-1], out["final_state"].bed[0].cpu().numpy())
+        loss = out["loss"]
+        acc = float(out["steps"][1:].mean())
+        checks["loss finite, falls"] = bool(np.isfinite(loss).all()
+                                            and loss[-1] < loss[0])
+        checks["acc in (0.02, 0.98)"] = 0.02 < acc < 0.98
+        print(f"[run] {family} {type(chain).__name__}.run({n_iter}, seed="
+              f"{seed}) at {GRID}^2, one chain: {steps / elapsed:,.0f} it/s "
+              f"({elapsed:.2f} s) | loss {loss[0]:.6e} -> {loss[-1]:.6e}, "
+              f"acc {acc:.3f} | launches {launches} in {steps} steps | "
+              f"chain 0's draws in the farm of {n_farm}: {n_diff} of "
+              f"{n_values} values differ | chain 0's traces in that farm "
+              f"bitwise equal (reported, not gated): {big_traces} | "
+              f"progress: {progress[-1] if progress else None!r} | checks "
+              f"{checks} ({card})", flush=True)
+        if any(n != steps for n in launches.values()):
+            raise RuntimeError(f"{family} single-chain launches {launches} "
+                               f"in {steps} steps")
+        if not all(checks.values()):
+            raise RuntimeError(f"{family} single-chain run checks failed: "
+                               f"{checks}")
+        busy_share(farm, state1, card, elapsed / steps * 1e6,
+                   n_steps=RUN_PROFILE_STEPS, tag=f"run-{family}-profile")
+        del farm, state1, out, seen, second
+        one = (_crf_one_chain_kernels if is_crf
+               else _sgs_one_chain_kernels)(chain, card)
+        rows[family] = one
+        del chain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_collect(p, card):
+    """[collect]: ``MultiChainSampler.run(collect_beds=True,
+    profile_dir=...)`` at both headlines (COLLECT_RUNS): ``bed_thin`` is
+    (n_chains, n_segments, H, W) with its last snapshot the final
+    full-space bed bit for bit, and a Chrome trace of the second segment
+    was written into ``profile_dir`` (a temporary directory under the
+    checkout) naming the family's first kernel."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+
+    for family, make, n, kernel in (
+            ("crf", make_chain, N_CHAINS, "fused_window_kernel"),
+            ("sgs", make_sgs_chain, SGS_CHAINS, "window_extract_kernel")):
+        n_iter, seg = COLLECT_RUNS[family]
+        n_seg = -(-(n_iter - 1) // seg)
+        sampler = MultiChainSampler(make(p), n, device=DEVICE)
+        states = sampler.init(seeds=0)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                         dir=ROOT) as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, traces = sampler.run(states, n_iter, segment_size=seg,
+                                         progress=False, collect_beds=True,
+                                         profile_dir=tmp)
+            elapsed = time.perf_counter() - t0
+            thin = traces.pop("bed_thin")
+            last = np.array_equal(thin[:, -1],
+                                  sampler.full_bed(states).cpu().numpy())
+            files = sorted(Path(tmp).iterdir())
+            names = [f.name for f in files]
+            size_mb = sum(f.stat().st_size for f in files) / 1e6
+            named = bool(files) and kernel in files[0].read_text()
+        print(f"[collect] {family}, {n} chains x {GRID}^2, run({n_iter}, "
+              f"segment_size={seg}, collect_beds=True, profile_dir=...) in "
+              f"{elapsed:.2f} s: bed_thin {thin.shape} ({thin.nbytes / 1e9:.2f}"
+              f" GB), last snapshot = final full-space bed bitwise: {last} "
+              f"| trace files {names} ({size_mb:.1f} MB), naming "
+              f"{kernel}: {named} ({card})", flush=True)
+        if thin.shape != (n, n_seg, GRID, GRID) or not last:
+            raise RuntimeError(f"{family} bed_thin {thin.shape} wrong")
+        if names != ["segment1.pt.trace.json"] or not named:
+            raise RuntimeError(f"{family} profile_dir holds {names}")
+        del thin, traces, sampler, states
+        torch.cuda.empty_cache()
+
+
+def _device_busy(fn):
+    """(device busy us, wall us, device ops) of ``fn()`` under
+    ``torch.profiler`` (busy None where it recorded no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in events)
+    return (busy or None), wall_us, sum(e.count for e in events)
+
+
+def _profiled_chunks(p, vario, bounds, card):
+    """The device-idle share of GEO_PROFILE_CHUNKS chunks of the bounded
+    SGS loop at full width, as ``sgs`` runs them (``_solve_chunk``, the
+    host's truncated-normal draws, the scatter), after as many warm
+    ones."""
+    import torch
+    from scipy.stats import truncnorm
+
+    from mcmc_tpu_torch.geostats.sgs import (_prepare, _score_grid,
+                                             _solve_chunk)
+
+    kw = GEO_KW
+    prep = _prepare(p["xx"], p["cond_bed"], vario, None, kw["num_points"],
+                    "ok", kw["half_window"], torch.device(DEVICE))
+    lo_b, hi_b = (prep["nst"].transform_np(np.broadcast_to(b, (GRID, GRID)))
+                  for b in bounds)
+    zg = _score_grid(prep, DEVICE)
+    cells = prep["cells"][:2 * GEO_PROFILE_CHUNKS * kw["chunk"]]
+    cells_t = torch.as_tensor(cells, device=DEVICE)
+    rng = np.random.default_rng(0)
+
+    def chunks(first):
+        for c in range(first, first + GEO_PROFILE_CHUNKS):
+            sl = slice(c * kw["chunk"], (c + 1) * kw["chunk"])
+            ii, jj = cells_t[sl].unbind(1)
+            est, var = _solve_chunk(prep, zg, ii, jj, kw["radius"])
+            sd = np.maximum(np.sqrt(np.abs(var)), 1e-12)
+            lo, hi = (b[cells[sl, 0], cells[sl, 1]] for b in (lo_b, hi_b))
+            draws = truncnorm.rvs((lo - est) / sd, (hi - est) / sd, loc=est,
+                                  scale=sd, random_state=rng)
+            zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
+                                         device=DEVICE)
+
+    chunks(0)
+    busy, wall, n_ops = _device_busy(lambda: chunks(GEO_PROFILE_CHUNKS))
+    per = GEO_PROFILE_CHUNKS
+    idle = ("not measured (the profiler recorded no device time)"
+            if busy is None else f"{1 - busy / wall:.3f}")
+    print(f"[geostats] {per} profiled chunks of {kw['chunk']} cells at "
+          f"{GRID}^2 (window {2 * kw['half_window'] + 1}^2, "
+          f"{kw['num_points']} neighbours): {n_ops / per:.0f} device ops "
+          f"a chunk, device busy "
+          f"{(busy or 0) / per / 1e3:.3f} ms a chunk against "
+          f"{wall / per / 1e3:.3f} ms of profiled wall -> idle share {idle}"
+          f" ({card})", flush=True)
+
+
+def phase_geostats(p, card):
+    """[geostats]: the T2 workflow at full width.  ``fit_variogram`` on the
+    headline's radar picks, then ``generate_initial_beds`` at GRID^2 with
+    the exponential fit (2 beds, surf bounds, GEO_KW): the data cells
+    honoured within GEO_DATA_ATOL, every simulated cell within
+    [nanmin(data) - 2000, surf - 1] to GEO_BOUND_ATOL, the two beds
+    differ and the same seed reproduces the first bitwise; ``krige`` at
+    GRID^2 (finite maps, the mean honouring the data); the same ``sgs``
+    call on a GEO_CUT^2 cut on the card and on the CPU within
+    GEO_CPU_ATOL; the two beds as a 2-chain CRF farm's initial beds,
+    GEO_FARM_STEPS steps with a finite loss; seconds per bed, chunks,
+    host ms a chunk and the idle share of profiled chunks."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.geostats import (fit_variogram, generate_initial_beds,
+                                         krige)
+
+    # the chunk loop is host-bound: start it with the caching allocator
+    # emptied of the earlier phases' multi-GB blocks
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    if tf32 != (False, "highest"):
+        raise RuntimeError(f"float32 matmuls may use TF32: {tf32}")
+    xx, yy, cond, surf = p["xx"], p["yy"], p["cond_bed"], p["surf"]
+    m = ~np.isnan(cond)
+    t0 = time.perf_counter()
+    _, _, params, _ = fit_variogram(cond[m], np.column_stack([xx[m],
+                                                              yy[m]]))
+    t_fit = time.perf_counter() - t0
+    vario = dict(azimuth=0.0, nugget=0.0, major_range=params[1][0],
+                 minor_range=params[1][0], sill=params[1][1],
+                 vtype="Exponential")
+    lower = float(np.nanmin(cond) - 2000.0)
+    beds_kw = dict(surf=surf, seed=GEO_SEED, device=DEVICE, **GEO_KW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beds = generate_initial_beds(xx, yy, cond, vario, n_beds=2, **beds_kw)
+    t_beds = time.perf_counter() - t0
+    again = generate_initial_beds(xx, yy, cond, vario, n_beds=1,
+                                  **beds_kw)[0]
+    n_cells = int((~m).sum())
+    n_chunks = -(-n_cells // GEO_KW["chunk"])
+    per_bed = t_beds / 2
+    data_err = max(float(np.abs(b[m] - cond[m]).max()) for b in beds)
+    above = max(float((b[~m] - (surf[~m] - 1.0)).max()) for b in beds)
+    below = max(float((lower - b[~m]).max()) for b in beds)
+    t0 = time.perf_counter()
+    mean, std = krige(xx, yy, cond, vario, radius=GEO_KW["radius"],
+                      num_points=GEO_KW["num_points"],
+                      half_window=GEO_KW["half_window"], device=DEVICE)
+    t_krige = time.perf_counter() - t0
+    krige_err = float(np.abs(mean[m] - cond[m]).max())
+    cut = slice(0, GEO_CUT)
+    sub = [a[cut, cut] for a in (xx, yy, cond, surf)]
+    t0 = time.perf_counter()
+    on_card = generate_initial_beds(*sub[:3], vario,
+                                    **dict(beds_kw, surf=sub[3]))[0]
+    t_cut_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = generate_initial_beds(*sub[:3], vario, **dict(
+        beds_kw, surf=sub[3], device="cpu"))[0]
+    t_cut_cpu = time.perf_counter() - t0
+    cpu_diff = float(np.abs(on_card - on_cpu).max())
+    farm = MultiChainSampler(make_chain(p), 2, device=DEVICE)
+    _, tr = farm.run(farm.init(initial_beds=np.stack(beds), seeds=0),
+                     GEO_FARM_STEPS + 1, progress=False)
+    farm_loss = tr["loss"]
+    checks = {
+        "data honoured": data_err <= GEO_DATA_ATOL,
+        "below surf - 1": above <= GEO_BOUND_ATOL,
+        "above the lower bound": below <= GEO_BOUND_ATOL,
+        "beds differ": not np.array_equal(beds[0], beds[1]),
+        "same seed bitwise": np.array_equal(again, beds[0]),
+        "krige finite": bool(np.isfinite(mean).all()
+                             and np.isfinite(std).all()),
+        "krige honours data": krige_err <= GEO_DATA_ATOL,
+        "card = CPU": cpu_diff <= GEO_CPU_ATOL,
+        "farm loss finite": bool(np.isfinite(farm_loss).all()),
+    }
+    print(f"[geostats] fit_variogram on {int(m.sum())} radar picks in "
+          f"{t_fit:.2f} s: exponential range {params[1][0]:.0f} m, sill "
+          f"{params[1][1]:.3f} | generate_initial_beds at {GRID}^2 "
+          f"(n_beds 2, radius {GEO_KW['radius']:.0f}, num_points "
+          f"{GEO_KW['num_points']}, chunk {GEO_KW['chunk']}, half_window "
+          f"{GEO_KW['half_window']}): {per_bed:.2f} s a bed, {n_chunks} "
+          f"chunks of {n_cells} cells, {per_bed / n_chunks * 1e3:.3f} ms a "
+          f"chunk | data cells max |err| {data_err:.3e} m, max above surf "
+          f"- 1 {above:.3e} m, max below the lower bound {below:.3e} m | "
+          f"krige at {GRID}^2 in {t_krige:.2f} s, data max |err| "
+          f"{krige_err:.3e} m ({card})", flush=True)
+    print(f"[geostats] {GEO_CUT}^2 cut, same call on the card "
+          f"({t_cut_card:.2f} s) and the CPU ({t_cut_cpu:.2f} s): beds max "
+          f"|card - CPU| {cpu_diff:.3e} m (bound {GEO_CPU_ATOL:g}) | 2-chain "
+          f"CRF farm from the two beds, {GEO_FARM_STEPS} steps: loss "
+          f"{farm_loss[:, 0].mean():.6e} -> {farm_loss[:, -1].mean():.6e} | "
+          f"TF32 {tf32} | checks {checks}", flush=True)
+    if not all(checks.values()):
+        raise RuntimeError(f"geostats checks failed: {checks}")
+    _profiled_chunks(p, vario, (lower, surf - 1.0), card)
+    return dict(seconds_per_bed=per_bed, chunks=n_chunks)
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
                watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
@@ -1977,7 +2643,7 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
 
 
 def main():
-    card, name = phase_device()
+    card, _ = phase_device()
     import torch
 
     phase_build()
@@ -2006,6 +2672,11 @@ def main():
                                                  card)
     launches["masked_cg"] = phase_entry_point(p, card)
     phase_entry_seed_list(p, card)
+    for tag, phase in (("run", phase_run), ("collect", phase_collect),
+                       ("geostats", phase_geostats)):
+        t0 = time.perf_counter()
+        phase(p, card)
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": "mcmc_tpu_torch/ops/csrc/" + source,
@@ -2015,7 +2686,7 @@ def main():
             "library_ms")}} for kernel, source, replaces in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

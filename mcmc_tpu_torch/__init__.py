@@ -21,8 +21,13 @@ Main path (``ChainSGS`` the same way, with its own setters)::
 
 or, with checkpoint/resume, ``drivers.large_scale_chain_farm`` /
 ``small_scale_chain_farm``, or ``python -m mcmc_tpu_torch cfg.json``.
+One chain: ``chain.run(n_iter, ...)`` (a one-chain farm).  Initial beds
+(the T2 workflow): ``geostats.fit_variogram`` on the radar picks, then
+``geostats.generate_initial_beds`` (SGS on the card), handed to
+``sampler.init(initial_beds=...)``.
 """
 
+from . import geostats
 from .models.chain_crf import ChainCRF
 from .models.chain_sgs import ChainSGS
 from .ops.transforms import NormalScoreTransform
@@ -30,6 +35,6 @@ from .parallel.sampler import MultiChainSampler
 from .utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                            SGSParams, VariogramConfig, WeightConfig)
 
-__all__ = ["ChainCRF", "ChainSGS", "MultiChainSampler",
+__all__ = ["geostats", "ChainCRF", "ChainSGS", "MultiChainSampler",
            "NormalScoreTransform", "BlockMenuConfig", "LossConfig",
            "RandFieldConfig", "SGSParams", "VariogramConfig", "WeightConfig"]

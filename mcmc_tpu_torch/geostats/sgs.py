@@ -1,0 +1,282 @@
+"""Sequential Gaussian simulation and kriging maps, batched over chunks of
+cells.
+
+PyTorch counterpart of ``mcmc_tpu/geostats/sgs.py`` (the reference's
+per-cell SGS loop, gstatsim_custom/interpolate.py:92-191 ``sgs`` and
+:13-89 ``krige``).  The shuffled simulation path is processed in chunks:
+each chunk's cells take their neighbours from a fixed (2w+1)^2 window by
+the octant search (``ops/neighbors.py``), one masked kriging solve a cell
+(``ops/kriging.py``), then a Gaussian (or bounded truncated-normal) draw.
+Cells of one chunk are conditioned on everything before the chunk, not on
+each other, exactly as in the JAX package; a cell with no conditioning in
+its window draws from N(global_mean, sill).
+
+Where the work runs: a chunk's window gather, octant search, kriging
+solve and scatter are a fixed set of batched torch ops on ``device`` (the
+card unless the caller asks for the CPU), in float32 as the JAX package
+computes them; the normal-score transforms (``transform_np`` /
+``inverse_np``) and the draws stay on the host in numpy, as the JAX
+package's do.  So the loop syncs once a chunk (est and var to the host).
+
+Random stream: the host generator is seeded with the same numpy uint32
+scalar as the JAX package's (the last word of its key data, ``seed mod
+2**32``), so the path permutation and every normal or truncated-normal
+draw are the JAX package's; beds then differ from the JAX package's only
+by float32 rounding in the solves.  ``seed=None`` draws fresh entropy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.covariance import CovarianceSpec, _f32, make_rotation_matrix
+from ..ops.kriging import ok_solve_masked, sk_solve_masked
+from ..ops.neighbors import octant_sector, octant_select
+from ..ops.transforms import NormalScoreTransform
+from ..utils.rng import resolve_device, resolve_seed
+
+
+def _vario_to_spec(variogram: dict) -> CovarianceSpec:
+    vt = variogram["vtype"].lower()
+    return CovarianceSpec(vt, s=variogram.get("s"))
+
+
+def _check_vario(variogram):
+    missing = [k for k in ("major_range", "minor_range", "azimuth", "sill",
+                           "nugget", "vtype") if k not in variogram]
+    if missing:
+        raise ValueError(f"Variogram missing {', '.join(missing)}")
+    if variogram["vtype"].lower() not in ("exponential", "gaussian",
+                                          "spherical", "matern"):
+        raise ValueError("vtype must be exponential, gaussian, spherical, "
+                         "or matern")
+    if variogram["vtype"].lower() == "matern" and "s" not in variogram:
+        raise ValueError("Matern covariance requires the s parameter in "
+                         "the variogram")
+
+
+def _make_cell_kernel(spec, ktype, num_points, half_window):
+    """Per chunk of cells (i, j): gather each cell's window, octant
+    neighbours, kriging -> (est, var), each (C,) float32.
+
+    The JAX package's cell kernel, batched and in fewer launches: the
+    grid holds NaN where no score is known yet, so one gather gives the
+    window's values and validity (the target's own cell is NaN until it
+    is drawn, so it needs no exclusion); the distance and sector planes
+    are broadcast from the window's row and column coordinates (the same
+    float32 values as the JAX package's (S, S, 2) coordinate window); a
+    pick's coordinates are read back from those by index."""
+    WN = 2 * half_window + 1
+    k_per = max(int(num_points) // 8, 1)
+
+    def cells(grid, i, j, res, rot, sill, nugget, radius, global_mean):
+        H, W = grid.shape
+        C = i.shape[0]
+        ar = torch.arange(WN, device=grid.device)
+        rows = torch.clamp(i - half_window, 0, H - WN)[:, None] + ar
+        cols = torch.clamp(j - half_window, 0, W - WN)[:, None] + ar
+        gw = grid[rows[:, :, None], cols[:, None, :]].reshape(C, -1)
+        rows_f = rows.to(torch.float32) * res
+        cols_f = cols.to(torch.float32) * res
+        target = torch.stack([j.to(torch.float32) * res,
+                              i.to(torch.float32) * res], dim=-1)
+        dx = target[:, None, None, 0] - cols_f[:, None, :]   # (C, 1, WN)
+        dy = target[:, None, None, 1] - rows_f[:, :, None]   # (C, WN, 1)
+        dist = torch.sqrt(dx * dx + dy * dy).reshape(C, -1)
+        valid = ~torch.isnan(gw) & (dist < radius)
+        idx, mask = octant_select(dist, octant_sector(dx, dy).reshape(C, -1),
+                                  valid, k_per)
+        # an empty slot's coordinates are finite and its weight zero
+        coords = torch.stack([torch.gather(cols_f, 1, idx % WN),
+                              torch.gather(rows_f, 1, idx // WN)], dim=-1)
+        vals = torch.where(mask, torch.gather(gw, 1, idx), 0.0)
+        mask_f = mask.to(torch.float32)
+        if ktype == "ok":
+            est, var = ok_solve_masked(spec, target, coords, vals, mask_f,
+                                       rot, sill, nugget)
+        else:
+            est, var = sk_solve_masked(spec, target, coords, vals, mask_f,
+                                       rot, sill, nugget, global_mean)
+        # no-neighbour fallback: an unconditional draw from the prior
+        has = mask.any(dim=-1)
+        return (torch.where(has, est, global_mean),
+                torch.where(has, var, sill))
+
+    return cells
+
+
+def _prepare(xx, grid, variogram, sim_mask, num_points, ktype, half_window,
+             device):
+    """Shared ``sgs``/``krige`` set-up on the host: the normal-score fit
+    and the transformed grid, the target cells, the window (clamped to
+    the grid, WN <= min(H, W)) and the per-chunk cell function; the
+    scalars as Python floats holding the float32 values the device
+    computes with."""
+    _check_vario(variogram)
+    grid = np.asarray(grid, float)
+    H, W = grid.shape
+    res = float(abs(np.asarray(xx)[0, 1] - np.asarray(xx)[0, 0]))
+
+    cond_msk = ~np.isnan(grid)
+    data = grid[cond_msk]
+    nst = NormalScoreTransform.fit(data, n_quantiles=min(500, data.size))
+    z0 = np.where(cond_msk, np.nan_to_num(grid), 0.0)
+    z0 = np.asarray(nst.transform_np(z0))
+    z0 = np.where(cond_msk, z0, 0.0)
+    global_mean = float(z0[cond_msk].mean())
+
+    if sim_mask is None:
+        sim_mask = np.ones((H, W), bool)
+    cells = np.argwhere(np.asarray(sim_mask, bool) & ~cond_msk)
+
+    hw = min(int(half_window), (min(H, W) - 1) // 2)
+    rot = make_rotation_matrix(variogram["azimuth"],
+                               variogram["major_range"],
+                               variogram["minor_range"]).to(device)
+    cell = _make_cell_kernel(_vario_to_spec(variogram), ktype,
+                             int(num_points), hw)
+    return dict(grid=grid, H=H, W=W, res=_f32(res), cond_msk=cond_msk,
+                nst=nst, z0=z0, global_mean=_f32(global_mean), cells=cells,
+                rot=rot, cell=cell, sill=_f32(variogram["sill"]),
+                nugget=_f32(variogram["nugget"]))
+
+
+def _score_grid(p, device):
+    """The (H, W) float32 normal scores on ``device``: the data's, NaN
+    where no score is known yet."""
+    return torch.as_tensor(np.where(p["cond_msk"], p["z0"], np.nan),
+                           dtype=torch.float32, device=device)
+
+
+def _solve_chunk(p, zg, ii, jj, radius):
+    """(est, var) of the cells (ii, jj) as float64 host arrays: one sync."""
+    est, var = p["cell"](zg, ii, jj, p["res"], p["rot"], p["sill"],
+                         p["nugget"], _f32(radius), p["global_mean"])
+    out = torch.stack([est, var]).cpu().numpy().astype(float)
+    return out[0], out[1]
+
+
+def numpy_seed(seed) -> np.uint32:
+    """The host generator's seed: ``seed mod 2**32`` as a numpy uint32,
+    the last word of the JAX package's key data for ``seed`` (fresh
+    entropy for None)."""
+    return np.uint32(resolve_seed(seed) % (1 << 32))
+
+
+def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
+        sim_mask=None, quiet=True, stencil=None, rcond=None, bounds=None,
+        seed=None, chunk=64, half_window=40, *, device=None):
+    """Full sequential Gaussian simulation (reference
+    interpolate.py:92-191).
+
+    grid: NaN except at conditioning data.  Applies the normal-score
+    transform internally and inverse-transforms the result, including the
+    bounded (truncated-normal) draw path used for initial-bed generation
+    below the ice surface (interpolate.py:176-187).  ``device``: where
+    each chunk's solves run (the card unless the caller asks for the
+    CPU).  Returns the simulated 2D array in data units.
+    """
+    device = resolve_device(device)
+    p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
+                 half_window, device)
+    H, W, nst = p["H"], p["W"], p["nst"]
+
+    rng = np.random.default_rng(numpy_seed(seed))
+    order = rng.permutation(p["cells"].shape[0])
+    path = p["cells"][order]
+
+    # transformed bounds (lower, upper) grids, if any
+    if bounds is not None:
+        if len(bounds) != 2:
+            raise ValueError("bounds must be an iterable of length 2 with "
+                             "lower and upper bounds")
+        tb = []
+        for b in bounds:
+            b = (np.full((H, W), float(b)) if np.isscalar(b)
+                 else np.asarray(b, float))
+            if b.shape != p["grid"].shape:
+                raise ValueError("bounds must have same shape as grid")
+            tb.append(np.asarray(nst.transform_np(b)))
+        lo_b, hi_b = tb
+
+    zg = _score_grid(p, device)
+    path_t = torch.as_tensor(path, dtype=torch.long, device=device)
+    for start in range(0, path.shape[0], chunk):
+        cells = path[start: start + chunk]
+        ii, jj = path_t[start: start + chunk].unbind(1)
+        est, var = _solve_chunk(p, zg, ii, jj, radius)
+        sd = np.sqrt(np.abs(var))
+        if bounds is None:
+            draws = rng.normal(est, np.maximum(sd, 1e-12))
+        else:
+            from scipy.stats import truncnorm
+
+            lo = lo_b[cells[:, 0], cells[:, 1]]
+            hi = hi_b[cells[:, 0], cells[:, 1]]
+            eq = lo == hi
+            sd_s = np.maximum(sd, 1e-12)
+            # mask degenerate bounds BEFORE calling rvs: scipy raises on
+            # a == b instead of returning the point mass
+            a = np.where(eq, -1.0, (lo - est) / sd_s)
+            b = np.where(eq, 1.0, (hi - est) / sd_s)
+            draws = np.where(eq, lo, truncnorm.rvs(
+                a, b, loc=est, scale=sd_s, random_state=rng))
+        zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
+                                     device=device)
+
+    # cells outside sim_mask keep the score 0, as in the JAX package
+    out = np.asarray(nst.inverse_np(np.nan_to_num(zg.cpu().numpy())))
+    return out.reshape(H, W)
+
+
+def krige(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
+          sim_mask=None, quiet=True, stencil=None, chunk=256,
+          half_window=40, *, device=None):
+    """Kriging mean and std maps (reference interpolate.py:13-89; the
+    reference's own ``krige`` is broken, SURVEY.md §8.3).  The std map is
+    ``inverse_np(sqrt(var))``, as in the JAX package.  Returns (mean_map,
+    std_map) in data units."""
+    device = resolve_device(device)
+    p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
+                 half_window, device)
+    H, W, nst, cells = p["H"], p["W"], p["nst"], p["cells"]
+    zg = _score_grid(p, device)
+    cells_t = torch.as_tensor(cells, dtype=torch.long, device=device)
+
+    est_map = p["z0"].copy()
+    var_map = np.zeros((H, W))
+    for start in range(0, cells.shape[0], chunk):
+        cc = cells[start: start + chunk]
+        est, var = _solve_chunk(p, zg,
+                                *cells_t[start: start + chunk].unbind(1),
+                                radius)
+        est_map[cc[:, 0], cc[:, 1]] = est
+        var_map[cc[:, 0], cc[:, 1]] = var
+
+    var_map = np.where(var_map < 0, 0.0, var_map)
+    mean_out = np.asarray(nst.inverse_np(est_map))
+    std_out = np.asarray(nst.inverse_np(np.sqrt(var_map)))
+    return mean_out.reshape(H, W), std_out.reshape(H, W)
+
+
+def generate_initial_beds(xx, yy, cond_bed, variogram, surf=None, n_beds=1,
+                          radius=50e3, num_points=32, seed=0, *,
+                          device=None, **kw):
+    """Per-chain SGS initial beds, bounded below the ice surface (the T2
+    workflow: reference T2_StatisticalAnalysis.ipynb cells 20-22, consumed
+    by largeScaleChain_multiprocessing.py:602-606): bed i is ``sgs`` with
+    ``seed + i``, between 2000 m below the lowest datum and ``surf - 1``
+    where ``surf`` is given."""
+    device = resolve_device(device)
+    beds = []
+    bounds = None
+    if surf is not None:
+        lo = np.full(np.shape(cond_bed),
+                     float(np.nanmin(cond_bed) - 2000.0))
+        bounds = (lo, np.asarray(surf, float) - 1.0)
+    for i in range(n_beds):
+        beds.append(sgs(xx, yy, np.asarray(cond_bed, float), variogram,
+                        radius=radius, num_points=num_points, bounds=bounds,
+                        seed=seed + i, device=device, **kw))
+    return beds

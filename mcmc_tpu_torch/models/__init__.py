@@ -1,15 +1,17 @@
 """Chain models of the port: the large-scale CRF chain and its proposal
-engine, and the small-scale SGS chain."""
+engine (with the reference-API ``RandField`` wrapper), and the small-scale
+SGS chain."""
 
 from .chain_crf import (ChainCRF, ChainState, CRFConsts, CRFStatic, Draws,
-                        init_state, make_kernel, make_step)
+                        init_state, make_kernel, make_step, run_chain)
 from .chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                         make_sgs_kernel, make_sgs_step, sgs_init_state)
-from .randfield import (RandFieldArrays, RandFieldStatic, build_randfield,
-                        draw_block, make_block_menu)
+from .randfield import (RandField, RandFieldArrays, RandFieldStatic,
+                        build_randfield, draw_block, make_block_menu)
 
 __all__ = ["ChainCRF", "ChainState", "CRFConsts", "CRFStatic", "Draws",
-           "init_state", "make_kernel", "make_step", "RandFieldArrays",
-           "RandFieldStatic", "build_randfield", "draw_block",
-           "make_block_menu", "ChainSGS", "SGSConsts", "SGSState",
-           "SGSStatic", "make_sgs_kernel", "make_sgs_step", "sgs_init_state"]
+           "init_state", "make_kernel", "make_step", "run_chain",
+           "RandField", "RandFieldArrays", "RandFieldStatic",
+           "build_randfield", "draw_block", "make_block_menu", "ChainSGS",
+           "SGSConsts", "SGSState", "SGSStatic", "make_sgs_kernel",
+           "make_sgs_step", "sgs_init_state"]

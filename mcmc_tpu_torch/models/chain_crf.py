@@ -30,6 +30,7 @@ by each step (the Pallas kernel aliases it the same way).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -45,7 +46,8 @@ from ..ops.window_kernel import (fused_window_update,
                                  window_geometry)
 from ..utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                             WeightConfig)
-from ..utils.rng import PerChainStreams, resolve_device, resolve_seed
+from ..utils.rng import (PerChainStreams, is_seed_list, resolve_device,
+                         resolve_seed)
 from .randfield import (RandFieldArrays, RandFieldStatic,
                         block_param_entries, block_params_from,
                         build_randfield, draw_block_params, finish_block)
@@ -334,6 +336,13 @@ def make_kernel(static: CRFStatic, impl: str = "auto"):
     return mh_update
 
 
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t`` that shares no memory with it (on the CPU,
+    ``.numpy()`` alone would alias a state the next step updates in
+    place)."""
+    return t.to("cpu", copy=True).numpy()
+
+
 def sample_probes(beds, sample_ij, n):
     """(n, P) bed values at the probe cells."""
     if sample_ij.shape[0] == 0:
@@ -368,14 +377,136 @@ def chain_loss_mc(massConvResidual, mc_region_mask, sigma_mc) -> float:
                  / (2.0 * float(sigma_mc) ** 2))
 
 
+def single_chain_farm(chain, seed, device):
+    """The one-chain farm behind ``ChainCRF.run`` / ``ChainSGS.run``: a
+    ``MultiChainSampler`` of 1 chain on ``device`` and its initial state.
+
+    The chain is seeded as the per-chain stream of ``[seed]``
+    (``utils/rng.PerChainStreams``), so its draws are bitwise chain 0's in
+    any list-seeded farm whose first seed is ``seed``, on the CPU and the
+    card alike.  ``seed=None`` continues the stream of the chain's last
+    ``run``, else takes the ``set_random_generator`` seed (a list: its
+    first), else fresh entropy.  The stream stays on the chain."""
+    from ..parallel.sampler import MultiChainSampler
+
+    sampler = MultiChainSampler(chain, 1, device=device)
+    streams = chain._streams if seed is None else None
+    if streams is None:
+        seed = chain.seed if seed is None else seed
+        seeds = seed if is_seed_list(seed) else [resolve_seed(seed)]
+        state = sampler.init(seeds=resolve_seed(seeds, 1))
+    else:
+        state = sampler.init(seeds=[0])
+        sampler.generator = PerChainStreams(
+            keys=streams.keys.to(sampler.device),
+            step=streams.step.to(sampler.device))
+    chain._streams = sampler.generator
+    return sampler, state
+
+
+def run_chain(sampler, state, n_iter: int, save_beds: bool = False):
+    """``n_iter - 1`` MH steps of a one-chain ``sampler`` (iteration 0
+    records the initial state, as in the reference loop ``for i in
+    range(1, n_iter)``, MCMC.py:1247).  Returns (final_state, traces):
+    host numpy traces with leading dim ``n_iter`` and no chain axis,
+    index 0 holding the initial values; ``save_beds`` adds
+    ``traces["bed"]``, (n_iter, H, W) full beds."""
+    head = sampler.initial_row(state, save_beds)
+    state, tail = sampler.run_segment(state, int(n_iter) - 1, save_beds)
+    traces = {k: np.concatenate([head[k], tail[k].cpu().numpy()])[:, 0]
+              for k in head}
+    return state, traces
+
+
+def _run_segmented(run_fn, state, n_iter: int, info_per_iter: int,
+                   progress_bar: bool, plot: bool):
+    """Run ``run_fn(state, n_rows) -> (state, time-major traces)`` either in
+    one segment (no observers) or in ``info_per_iter``-step segments with
+    the reference's progress line / live figure (MCMC.py:1368-1432).  A
+    segment's row 0 duplicates the carried state and is dropped on
+    continuation segments, so the stitched traces equal the one-segment
+    ones bit for bit."""
+    if not (progress_bar or plot):
+        return run_fn(state, n_iter)
+    live = None
+    if plot:
+        from ..utils.plotting import LiveChainPlot
+
+        live = LiveChainPlot()
+    total_steps = int(n_iter) - 1
+    # observers always get at least one update, even for short runs
+    # (MCMC.py:1379,1415)
+    seg = max(1, min(int(info_per_iter), max(total_steps, 1)))
+    steps_left = total_steps
+    chunks = []
+    first = True
+    t0 = time.time()
+    done_steps = 0
+    acc0 = int(state.accepted.sum())
+    while steps_left > 0 or first:
+        s = min(seg, steps_left)
+        state, tr = run_fn(state, s + 1)
+        keep = tr if first else {k: v[1:] for k, v in tr.items()}
+        chunks.append(keep)
+        steps_left -= s
+        done_steps += s
+        loss_now = float((state.loss_mc
+                          + getattr(state, "loss_data", 0.0)).sum())
+        # cumulative acceptance like the reference (sum(step)/(i+1),
+        # MCMC.py:1406), from the state's accepted counter
+        acc = (int(state.accepted.sum()) - acc0) / max(done_steps, 1)
+        if progress_bar:
+            rate = done_steps / max(time.time() - t0, 1e-9)
+            print(f"iter {done_steps}/{total_steps} | loss {loss_now:.6e} | "
+                  f"acc {acc:.3f} | {rate:,.0f} it/s", flush=True)
+        if live is not None:
+            live(done_steps, state, {k: v[:, None] for k, v in keep.items()})
+        first = False
+    return state, {k: np.concatenate([c[k] for c in chunks])
+                   for k in chunks[0]}
+
+
+def run_single_chain(chain, n_iter, only_save_last_bed, info_per_iter,
+                     plot, progress_bar, save_beds, seed, device):
+    """The single-chain ``run`` of either family (``ChainCRF.run``,
+    ``ChainSGS.run``): a one-chain farm (``single_chain_farm``) through
+    ``run_chain``, segmented by the observers, returned as a dict of the
+    reference's names (MCMC.py:1147-1155) with every trace's chain axis
+    removed; ``bed`` the (n_iter, H, W) saved beds or the final bed, in
+    data space."""
+    if int(n_iter) < 1:
+        raise ValueError("n_iter must be >= 1 (trace row 0 records the "
+                         "initial state, reference loop semantics)")
+    save_beds = bool(not only_save_last_bed if save_beds is None
+                     else save_beds)
+    sampler, state = single_chain_farm(chain, seed, device)
+    final, traces = _run_segmented(
+        lambda st, n: run_chain(sampler, st, n, save_beds), state,
+        int(n_iter), int(info_per_iter), bool(progress_bar), bool(plot))
+    out = {
+        "bed": (traces["bed"] if save_beds
+                else host_copy(sampler.full_bed(final)[0])),
+        "loss_mc": traces["loss_mc"],
+        "loss_data": traces["loss_data"],
+        "loss": traces["loss"],
+        "steps": traces["step"],
+        "resampled_times": host_copy(final.resampled[0]),
+        "blocks": traces["block"],
+        "final_state": final,
+    }
+    if sampler.static.P:
+        out["sample_values"] = traces["samples"].T  # (P, n_iter)
+    return out
+
+
 class ChainCRF:
     """Host-side builder with the reference's imperative API surface.
 
     Mirrors ``chain_crf``'s setters (set_update_region / set_loss_type /
     set_update_type / set_crf_data_weight / set_random_generator /
     set_sample_points_locations), then ``build(device)`` produces the
-    (CRFStatic, CRFConsts) pair that ``parallel.sampler`` runs.  The
-    single-chain ``run`` convenience is not ported yet.
+    (CRFStatic, CRFConsts) pair that ``parallel.sampler`` runs; ``run`` is
+    the single-chain convenience, a one-chain farm.
     """
 
     def __init__(self, xx, yy, initial_bed, surf, velx, vely, dhdt, smb,
@@ -410,6 +541,7 @@ class ChainCRF:
         self.use_data_loss = False
         self.data_region_mask = np.ones(self.xx.shape, np.float32)
         self.seed = None
+        self._streams = None  # the single-chain run's stream, continued
         self._rf_cfg = None
         self._block_cfg = None
         self._weight_cfg = None
@@ -513,9 +645,11 @@ class ChainCRF:
 
     def set_random_generator(self, rng_seed=None):
         """Seed for the samplers built from this chain: an int, None for
-        fresh entropy, or a list of per-chain seeds (one stream a
-        chain)."""
+        fresh entropy, or a list of per-chain seeds (one stream a chain).
+        The next ``run`` starts from it, not from the last run's
+        stream."""
         self.seed = resolve_seed(rng_seed)
+        self._streams = None
 
     def set_sample_points_locations(self, loc):
         """(n, 2) (x, y) posterior probe points traced every iteration
@@ -605,3 +739,43 @@ class ChainCRF:
             resolution=float(self.resolution),
             rf=rf_arrays)
         return static, consts
+
+    def run(self, n_iter, RF=None, only_save_last_bed=True,
+            info_per_iter=1000, plot=False, progress_bar=False, *,
+            save_beds=None, seed=None, device=None):
+        """Single-chain convenience run; returns a dict of the reference's
+        return names (MCMC.py:1147-1155).
+
+        Positional order as the reference's ``chain_crf.run(n_iter, RF,
+        only_save_last_bed, info_per_iter, plot, progress_bar)``
+        (MCMC.py:1137), with the JAX package's defaults (its
+        production-driver settings); ``save_beds``, ``seed`` and
+        ``device`` (the card unless the caller asks for the CPU) are
+        keyword-only.  ``RF`` may be a ``models.RandField`` whose
+        configuration the chain adopts.  The run is a one-chain farm
+        (``single_chain_farm``: the kernels on the card, their plain
+        versions on the CPU), seeded as the per-chain stream of ``[seed]``
+        and continued by the next ``run`` when ``seed`` is None; each run
+        restarts from the initial bed.  ``progress_bar`` prints the
+        cumulative acceptance and it/s every ``info_per_iter`` iterations
+        and ``plot`` drives ``utils.plotting.LiveChainPlot``; either
+        segments the run, with bitwise the same traces.  Every trace has
+        its chain axis removed; ``final_state`` is the port's
+        ``ChainState``, with its leading axis of 1."""
+        if RF is not None:
+            from .randfield import RandField
+
+            if not isinstance(RF, RandField):
+                # reference error text, MCMC.py:1160
+                raise TypeError('The arugment "RF" has to be an object of '
+                                'the class RandField')
+            if RF._blocks is None:
+                raise ValueError("RF needs set_block_sizes before run")
+            if RF._weights is None and self._weight_cfg is None:
+                raise ValueError("RF needs set_weight_param before run "
+                                 "(no weight config on the chain either)")
+            self.configure_randfield(RF.config, RF._blocks,
+                                     RF._weights or self._weight_cfg)
+        return run_single_chain(self, n_iter, only_save_last_bed,
+                                info_per_iter, plot, progress_bar, save_beds,
+                                seed, device)

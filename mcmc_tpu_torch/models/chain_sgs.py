@@ -44,8 +44,8 @@ function takes a leading chain axis, the draws come from one explicit
 from one launch of the per-chain draw kernel (``draw_plan_entries``,
 ``ops/chain_draws.py``), and ``state.fields`` is updated IN PLACE.  Not
 carried over: the ``MCMC_TPU_SGS_SURGERY`` gates and the TPU's one-hot
-packing matmuls.  ``ChainSGS.run`` (the single-chain convenience) waits
-for a later slice.
+packing matmuls.  ``ChainSGS.run`` is the single-chain convenience, a
+one-chain farm as ``ChainCRF.run`` is.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ from ..ops.sgs_window_kernel import (window_extract,
 from ..ops.transforms import NormalScoreLUT, NormalScoreTransform
 from ..utils.config import LossConfig, SGSParams, VariogramConfig
 from ..utils.rng import PerChainStreams, resolve_device, resolve_seed
-from .chain_crf import IMPLS, chain_loss_mc, sample_probes
+from .chain_crf import (IMPLS, chain_loss_mc, run_single_chain,
+                        sample_probes)
 
 N_CONST = 10   # planes of SGSConsts.stacked
 
@@ -769,6 +770,7 @@ class ChainSGS:
         self.block_min_y = self.block_max_y = None
         self.sample_loc = None
         self.seed = None
+        self._streams = None  # the single-chain run's stream, continued
         self._host_nst = None
         self._initial_detrended = None
         self._initial_z = None
@@ -874,8 +876,10 @@ class ChainSGS:
     def set_random_generator(self, rng_seed=None):
         """Seed for the samplers built from this chain: an int, None for
         fresh entropy, or a list of per-chain seeds (one stream a
-        chain)."""
+        chain).  The next ``run`` starts from it, not from the last run's
+        stream."""
         self.seed = resolve_seed(rng_seed)
+        self._streams = None
 
     def set_sample_points_locations(self, loc):
         """(n, 2) (x, y) posterior probe points traced every iteration
@@ -1079,3 +1083,18 @@ class ChainSGS:
             raise ValueError("call build() before host_transform()")
         return np.asarray(self._host_nst.transform_np(
             np.asarray(bed_detrended)), np.float32)
+
+    def run(self, n_iter, only_save_last_bed=True, info_per_iter=100,
+            plot=False, progress_bar=False, *, save_beds=None, seed=None,
+            device=None):
+        """Single-chain convenience run, positional order as the
+        reference's ``chain_sgs.run(n_iter, only_save_last_bed,
+        info_per_iter, plot, progress_bar)`` (MCMC.py:1599) with the JAX
+        package's defaults; ``save_beds``, ``seed`` and ``device`` are
+        keyword-only.  A one-chain farm, seeded, continued and segmented
+        as ``ChainCRF.run``'s; ``bed`` is in data space (the trend
+        restored), and row 0's ``loss_data`` is 0.  ``final_state`` is the
+        port's ``SGSState``, with its leading axis of 1."""
+        return run_single_chain(self, n_iter, only_save_last_bed,
+                                info_per_iter, plot, progress_bar, save_beds,
+                                seed, device)

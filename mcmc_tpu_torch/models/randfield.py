@@ -5,11 +5,12 @@ RandField, MCMC.py:433-778).  Host-side setup builds the discrete
 block-size menu and the stacked logistic edge masks; the draws produce one
 (B, B) proposal per chain from a single statically shaped FFT.  The draws
 take a ``torch.Generator``; a seed-listed farm's step reads the same
-values from its draw plan's views (``block_params_from``).
+values from its draw plan's views (``block_params_from``).  ``RandField``
+is the reference-API wrapper over all of it.
 
 Only the spectral generation method is ported: the gstools-SRF method
 (``spectral=False``, ``mcmc_tpu/ops/srf.py``) waits for ROADMAP Queue 1
-#10, and the ``RandField`` wrapper class for a later slice.
+#3.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..ops.spectral import (block_mask, field_param_entries, field_params,
                             sample_field_params, spectral_field,
                             standardize_masked)
 from ..utils.config import BlockMenuConfig, RandFieldConfig, WeightConfig
-from ..utils.rng import resolve_device
+from ..utils.rng import make_generator, resolve_device, resolve_seed
 
 
 def make_block_menu(cfg: BlockMenuConfig) -> np.ndarray:
@@ -72,7 +73,7 @@ def _require_spectral(spectral: bool):
     if not spectral:
         raise NotImplementedError(
             "the gstools-SRF generation method (spectral=False) is not "
-            "ported yet: ROADMAP Queue 1 #10 (ops/srf.py)")
+            "ported yet: ROADMAP Queue 1 #3 (ops/srf.py)")
 
 
 def build_randfield(rf_cfg: RandFieldConfig, blocks: BlockMenuConfig,
@@ -174,3 +175,168 @@ def draw_block(gen, n, static: RandFieldStatic, arrays: RandFieldArrays):
                                    device=raw.device)
     f = finish_block(raw, size_idx, scale, arrays, nugget_noise, nug)
     return f, size_idx, arrays.pairs[0, size_idx], arrays.pairs[1, size_idx]
+
+
+class RandField:
+    """Reference-API wrapper over the proposal engine (the reference's
+    ``RandField``, MCMC.py:433-778): constructor, ``set_generation_method``
+    / ``set_block_sizes`` / ``set_weight_param``, the CRF-weight helpers
+    and host-callable field and block draws.  ``ChainCRF.run(n_iter, RF)``
+    adopts its configuration.
+
+    The draws take the wrapper's own ``torch.Generator``, seeded from
+    ``rng_seed`` (None: fresh entropy) and made on ``device`` (the card
+    unless the caller asks for the CPU) at the first draw.  Only the
+    spectral method is ported (``_require_spectral``)."""
+
+    def __init__(self, range_min_x, range_max_x, range_min_y, range_max_y,
+                 scale_min, scale_max, nugget_max, model_name, isotropic,
+                 smoothness=None, rng_seed=None, *, device=None):
+        self.config = RandFieldConfig(
+            range_min_x=range_min_x, range_max_x=range_max_x,
+            range_min_y=range_min_y, range_max_y=range_max_y,
+            scale_min=scale_min, scale_max=scale_max, nugget_max=nugget_max,
+            model_name=model_name, isotropic=isotropic,
+            smoothness=smoothness)
+        self.seed = resolve_seed(rng_seed)
+        self.device = device
+        self._gen = None
+        self._blocks = None
+        self._weights = None
+        self._built = None
+
+    def set_generation_method(self, spectral):
+        """True: FFT spectral synthesis; False, the gstools-SRF
+        randomization method (reference MCMC.py:514-522), is not ported
+        and raises."""
+        _require_spectral(bool(spectral))
+        self.config = dataclasses.replace(self.config,
+                                          spectral=bool(spectral))
+        self._built = None
+
+    def set_block_sizes(self, min_block_x, max_block_x, min_block_y,
+                        max_block_y, steps=5):
+        """Discrete block-size menu, steps^2 even-ified (w//2*2) pairs
+        (reference RandField.set_block_sizes, MCMC.py:524-581)."""
+        self._blocks = BlockMenuConfig(min_block_x, max_block_x,
+                                       min_block_y, max_block_y, steps)
+        self._built = None
+
+    def set_weight_param(self, logis_func_L, logis_func_x0, logis_func_k,
+                         logis_func_offset, max_dist, resolution):
+        """Logistic edge / conditioning-weight parameters (reference
+        set_weight_param, MCMC.py:544-565)."""
+        if self._blocks is None:
+            raise Exception(
+                "It seems like the set_block_sizes has not been called yet "
+                "before calling set_weight_param")
+        self._weights = WeightConfig(logis_func_L, logis_func_x0,
+                                     logis_func_k, logis_func_offset,
+                                     max_dist, resolution)
+        self._built = None
+
+    # -- derived artifacts ---------------------------------------------------
+
+    def _generator(self) -> torch.Generator:
+        if self._gen is None:
+            self._gen = make_generator(self.seed,
+                                       resolve_device(self.device))
+        return self._gen
+
+    def _ensure_built(self):
+        if self._built is None:
+            if self._blocks is None or self._weights is None:
+                raise Exception(
+                    "call set_block_sizes and set_weight_param first")
+            self._built = build_randfield(self.config, self._blocks,
+                                          self._weights, self.device)
+        return self._built
+
+    @property
+    def pairs(self):
+        return self._ensure_built()[1].pairs.cpu().numpy()
+
+    def get_block_sizes(self):
+        """(2, steps^2) (width, height) menu (reference MCMC.py:568-581)."""
+        return make_block_menu(self._blocks)
+
+    def get_edge_masks(self):
+        """Per-block-size logistic edge-decay masks, trimmed to each
+        (height, width) like the reference list (MCMC.py:583-623)."""
+        _, arrays = self._ensure_built()
+        masks = arrays.edge_masks.cpu().numpy()
+        pairs = arrays.pairs.cpu().numpy()
+        return [masks[i, :pairs[1, i], :pairs[0, i]]
+                for i in range(pairs.shape[1])]
+
+    def get_crf_weight(self, xx, yy, cond_data_mask):
+        """Conditioning weight from a data mask: exact EDT distance and the
+        min-shifted logistic (reference MCMC.py:689-714).  Returns
+        (weight, dist, dist_rescale, dist_logi)."""
+        from ..ops.distance import min_dist_from_mask
+
+        dist = min_dist_from_mask(np.asarray(xx), np.asarray(yy),
+                                  np.asarray(cond_data_mask) == 1)
+        w, dr, dl = self._weight_from(dist)
+        return w, dist, dr, dl
+
+    def get_crf_weight_from_dist(self, xx, yy, dist):
+        """Conditioning weight from a precomputed distance map (reference
+        MCMC.py:716-740).  Returns (weight, dist, dist_rescale,
+        dist_logi)."""
+        w, dr, dl = self._weight_from(dist)
+        return w, np.asarray(dist), dr, dl
+
+    def _weight_from(self, dist):
+        """(weight, dist_rescale, dist_logi) as float32 numpy, computed in
+        float32 as the JAX package does."""
+        from ..ops.logistic import crf_weight_from_dist
+
+        wc = self._weights
+        out = crf_weight_from_dist(
+            torch.as_tensor(np.asarray(dist), dtype=torch.float32), wc.L,
+            wc.x0, wc.k, wc.offset, wc.max_dist)
+        return tuple(t.numpy() for t in out)
+
+    def get_random_field(self, X, Y, n=1):
+        """Field realizations on a (len(Y), len(X)) grid by the spectral
+        method: variogram parameters drawn as a proposal's, the field
+        standardized over the grid, scaled, plus the nugget's white noise.
+        Returns one (ny, nx) field, or (n, ny, nx) when n > 1 (the
+        reference returns only the first, MCMC.py:678-687)."""
+        _require_spectral(self.config.spectral)
+        X, Y = np.asarray(X), np.asarray(Y)
+        res = float(abs(X[1] - X[0])) if len(X) > 1 else 1.0
+        if len(Y) > 1:
+            res_y = float(abs(Y[1] - Y[0]))
+            if abs(res_y - res) > 1e-6 * max(res, res_y):
+                raise ValueError(
+                    f"get_random_field needs square cells: X spacing {res} "
+                    f"!= Y spacing {res_y}. Resample the grid or generate "
+                    "on the finer spacing and subsample.")
+        shape = (len(Y), len(X))
+        cfg = self.config
+        gen = self._generator()
+        device = gen.device
+        out = []
+        for _ in range(int(n)):
+            scale, nug, rx, ry = sample_field_params(
+                gen, 1, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
+                cfg.range_min_x, cfg.range_max_x, cfg.range_min_y,
+                cfg.range_max_y, cfg.isotropic, device)
+            raw = spectral_field(gen, 1, shape, res, cfg.model_name, rx, ry,
+                                 cfg.smoothness)
+            f = standardize_masked(raw, torch.ones(shape, dtype=torch.bool,
+                                                   device=device))
+            noise = torch.randn((1,) + shape, generator=gen, device=device)
+            f = f * scale[:, None, None] + noise * torch.sqrt(nug)[:, None,
+                                                                   None]
+            out.append(f[0].cpu().numpy())
+        return out[0] if n == 1 else np.stack(out)
+
+    def get_rfblock(self):
+        """One edge-masked proposal block, trimmed to its (h, w) (reference
+        get_rfblock, MCMC.py:742-778)."""
+        static, arrays = self._ensure_built()
+        f, _, w, h = draw_block(self._generator(), 1, static, arrays)
+        return f[0, :int(h[0]), :int(w[0])].cpu().numpy()

@@ -1,19 +1,25 @@
 """Numerical operators of the port: physics, spectral synthesis, logistic
-weights, distance transforms, covariance, kriging solves, the normal-score
-transform, and the kernels with their plain versions: the CRF fused window
-update and Philox noise, the SGS window extract/writeback, the two packed
-CG solves (mixture system, given Sigma) and the LUT."""
+weights, distance transforms, covariance, kriging solves, the octant
+neighbour search, the normal-score transform, and the kernels with their
+plain versions: the CRF fused window update and Philox noise, the SGS
+window extract/writeback, the two packed CG solves (mixture system, given
+Sigma) and the LUT."""
 
+from .covariance import (CovarianceSpec, covariance_norm, make_matern_table,
+                         make_rho, make_rotation_matrix, make_sigma)
 from .cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
                         mix_masked_cg_reference)
 from .lut_kernel import lut_interp, lut_interp_reference
 from .noise_kernel import batched_normal, batched_normal_reference
+from .transforms import NormalScoreTransform
 from .sgs_window_kernel import (window_extract, window_extract_reference,
                                 window_writeback, window_writeback_reference)
 from .window_kernel import (fused_window_update,
                             fused_window_update_reference, window_geometry)
 
-__all__ = ["fused_window_update", "fused_window_update_reference",
+__all__ = ["CovarianceSpec", "covariance_norm", "make_matern_table",
+           "make_rho", "make_rotation_matrix", "make_sigma",
+           "NormalScoreTransform", "fused_window_update", "fused_window_update_reference",
            "window_geometry", "batched_normal", "batched_normal_reference",
            "masked_cg", "masked_cg_reference", "mix_masked_cg",
            "mix_masked_cg_reference", "lut_interp", "lut_interp_reference",

@@ -14,6 +14,9 @@ here computes in float32 with the JAX package's operation order, and the
 host callers (``fit_cov_mixture``, ``models/chain_sgs.py``) convert its
 float32 result to float64 exactly where the JAX package does.
 
+``make_sigma`` / ``make_rho`` / ``cross_sigma`` build kriging systems
+from point sets (batched over leading axes) for ``ops/kriging.py``.
+
 Reference quirks carried over: spherical returns ``sill - 1`` beyond the
 range; matérn uses the reference's fitted scale factor, clamps zero
 distances to 1e-8 and maps the h -> 0 NaN to ``sill - nugget``.
@@ -128,6 +131,48 @@ def make_rotation_matrix(azimuth, major_range, minor_range) -> torch.Tensor:
     scale = torch.tensor([[1.0 / major_range, 0.0], [0.0, 1.0 / minor_range]],
                          dtype=torch.float32)
     return rot @ scale
+
+
+def rotate(coords, rotation_matrix):
+    """``coords @ rotation_matrix`` for (..., 2) coordinates, written out
+    elementwise (float32, no TF32 path on the card)."""
+    r = rotation_matrix.to(coords.device, coords.dtype)
+    return coords[..., :1] * r[0] + coords[..., 1:] * r[1]
+
+
+def _pair_norm(ta, tb):
+    """(..., na, nb) Euclidean distances between rotated point sets."""
+    d = ta[..., :, None, :] - tb[..., None, :, :]
+    return torch.sqrt(torch.sum(d * d, dim=-1))
+
+
+def make_sigma(spec: CovarianceSpec, coords, rotation_matrix, sill, nugget):
+    """Covariance matrix between data points (reference _krige.py:105-122).
+    coords: (..., n, 2).  Returns (..., n, n)."""
+    t = rotate(coords, rotation_matrix)
+    return covariance_norm(spec, _pair_norm(t, t), sill, nugget)
+
+
+def make_rho(spec: CovarianceSpec, coords, target_xy, rotation_matrix, sill,
+             nugget):
+    """Covariance vector between data points and a target cell (reference
+    _krige.py:124-144).  coords: (..., n, 2), target_xy: (..., 2).
+    Returns (..., n)."""
+    t1 = rotate(coords, rotation_matrix)
+    t2 = rotate(target_xy, rotation_matrix)
+    d = t1 - t2[..., None, :]
+    return covariance_norm(spec, torch.sqrt(torch.sum(d * d, dim=-1)), sill,
+                           nugget)
+
+
+def cross_sigma(spec: CovarianceSpec, coords_a, coords_b, rotation_matrix,
+                sill, nugget):
+    """Cross-covariance matrix between two point sets: (..., na, nb)."""
+    return covariance_norm(spec, _pair_norm(rotate(coords_a,
+                                                   rotation_matrix),
+                                            rotate(coords_b,
+                                                   rotation_matrix)),
+                           sill, nugget)
 
 
 def fit_cov_mixture(spec: CovarianceSpec, sill, nugget, h_max: float,

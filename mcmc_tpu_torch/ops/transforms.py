@@ -7,6 +7,10 @@ quantile tables are fitted on the host with sklearn's rule and applied:
 
 - on the host, exactly, by ``NormalScoreTransform.transform_np`` /
   ``inverse_np`` (numpy/SciPy; the chain's build and its initial z-plane);
+- on tensors, in float32 as the JAX package's device transform, by
+  ``NormalScoreTransform.transform`` / ``inverse`` (``torch.special``'s
+  ``ndtri`` / ``ndtr`` and ``jnp.interp``'s interpolation; the variogram
+  fit transforms its data this way);
 - on the hot path, by ``NormalScoreLUT``: the transform resampled onto a
   uniform grid, so a lookup is index arithmetic plus one pair read.  Its
   inverse lookup over a step's windows is the CUDA kernel of
@@ -49,6 +53,37 @@ class NormalScoreTransform:
         return cls(quantiles=quantiles.astype(np.float64),
                    references=references)
 
+    def _tables(self, device):
+        return (torch.as_tensor(self.quantiles, dtype=torch.float32,
+                                device=device),
+                torch.as_tensor(self.references, dtype=torch.float32,
+                                device=device))
+
+    def transform(self, x):
+        """Data values -> standard-normal scores, elementwise on a float32
+        tensor (array-likes become CPU tensors), on its device."""
+        x = torch.as_tensor(x).to(torch.float32)
+        q, r = self._tables(x.device)
+        fwd = _interp(x, q, r)
+        bwd = -_interp(-x, -q.flip(0), -r.flip(0))
+        p = 0.5 * (fwd + bwd)
+        p = torch.where(x == q[-1], 1.0, p)
+        p = torch.where(x == q[0], 0.0, p)
+        lo, hi = _score_bounds()
+        out = torch.clamp(torch.special.ndtri(p), lo, hi)
+        return torch.where(torch.isnan(x), x, out)
+
+    def inverse(self, z):
+        """Standard-normal scores -> data values, elementwise on a float32
+        tensor (array-likes become CPU tensors), on its device."""
+        z = torch.as_tensor(z).to(torch.float32)
+        q, r = self._tables(z.device)
+        p = torch.special.ndtr(z)
+        out = _interp(p, r, q)
+        out = torch.where(p == 0.0, q[0], out)
+        out = torch.where(p == 1.0, q[-1], out)
+        return torch.where(torch.isnan(z), z, out)
+
     def transform_np(self, x):
         """Data values -> standard-normal scores (float64, host)."""
         from scipy.special import ndtri
@@ -80,6 +115,36 @@ class NormalScoreTransform:
         out = np.where(p == 0.0, q[0], out)
         out = np.where(p == 1.0, q[-1], out)
         return np.where(np.isnan(zj), np.nan, out)
+
+
+def _score_bounds():
+    """The scores' clip (sklearn's 1e-7 tails) as float32 values: the
+    float64 ``ndtri`` of each tail rounded once, which is what the JAX
+    package's float32 transform clips to (float32 cannot hold 1 - 1e-7,
+    so a float32 ``ndtri`` of it would clip at 5.1666 rather than
+    5.1993)."""
+    from scipy.special import ndtri
+
+    t = _BOUNDS_THRESHOLD - np.spacing(1)
+    return (float(np.float32(ndtri(t))), float(np.float32(ndtri(1.0 - t))))
+
+
+def _interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)`` in float32 with its formula: the segment
+    from a right-sided search, a step narrower than the float32 spacing
+    of eps taken as flat, and the ends held at fp[0] and fp[-1]."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
+                    n - 1)
+    f0, x0 = fp[i - 1], xp[i - 1]
+    df = fp[i] - f0
+    dx = xp[i] - x0
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    flat = torch.abs(dx) <= eps
+    f = torch.where(flat, f0, f0 + ((x - x0) / torch.where(flat, 1.0, dx))
+                    * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
 
 
 def lut_clip_bound(n: int) -> float:

@@ -18,17 +18,23 @@ which were TPU workarounds; multi-GPU sharding waits for a later slice
 per-chain seeds (``utils/rng.PerChainStreams``: chain i's draws depend
 on ``seeds[i]`` alone; ``run_segment`` advances their step counter once
 a step, on the device).  The stream's state goes in and out for
-checkpoints (``io/checkpoint.py``).
+checkpoints (``io/checkpoint.py``).  ``run`` also thins each chain's bed
+to one snapshot a segment (``collect_beds``) and traces its second
+segment with ``torch.profiler`` (``profile_dir``); ``run_segment`` can
+trace every step's bed (``save_beds``).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from ..models.chain_crf import ChainState, IMPLS, init_state, make_step
+from ..models.chain_crf import (ChainState, IMPLS, host_copy, init_state,
+                                make_step)
 from ..models.chain_sgs import (ChainSGS, SGSState, make_sgs_step,
                                 sgs_init_state)
 from ..utils.progress import MultiChainProgress
@@ -138,10 +144,13 @@ class MultiChainSampler:
 
     # -- execution -----------------------------------------------------------
 
-    def _trace_buffers(self, n_steps: int):
+    def _trace_buffers(self, n_steps: int, save_beds: bool = False):
         N, P = self.n_chains, self.static.P
         kw = dict(device=self.device)
-        return {
+        beds = ({"bed": torch.empty((n_steps, N, self.static.H,
+                                     self.static.W), dtype=torch.float32,
+                                    **kw)} if save_beds else {})
+        return beds | {
             "loss_mc": torch.empty((n_steps, N), dtype=torch.float32, **kw),
             "loss_data": torch.empty((n_steps, N), dtype=torch.float32, **kw),
             "loss": torch.empty((n_steps, N), dtype=torch.float32, **kw),
@@ -151,22 +160,36 @@ class MultiChainSampler:
                                    **kw),
         }
 
-    def run_segment(self, states: ChainState | SGSState, n_steps: int):
+    def full_bed(self, states: ChainState | SGSState) -> torch.Tensor:
+        """(n_chains, H, W) beds in data space: an SGS chain's with its
+        trend restored."""
+        return (states.bed + self.consts.trend if self.is_sgs
+                else states.bed)
+
+    def run_segment(self, states: ChainState | SGSState, n_steps: int,
+                    save_beds: bool = False):
         """``n_steps`` MH steps; returns (states, traces) with time-major
-        device traces of shape (n_steps, n_chains, ...)."""
+        device traces of shape (n_steps, n_chains, ...).  ``save_beds``
+        adds ``traces["bed"]``, every step's ``full_bed``."""
         if self.generator is None:
             raise RuntimeError("call init() before running the sampler")
-        bufs = self._trace_buffers(int(n_steps))
+        bufs = self._trace_buffers(int(n_steps), save_beds)
         per_chain = isinstance(self.generator, PerChainStreams)
         for t in range(int(n_steps)):
             states, tr = self._step(self.consts, states, self.generator)
             if per_chain:
                 self.generator.advance()
+            if save_beds:
+                tr = dict(tr, bed=self.full_bed(states))
             for k, buf in bufs.items():
                 buf[t] = tr[k]
         return states, bufs
 
-    def _init_row(self, states: ChainState | SGSState):
+    def initial_row(self, states: ChainState | SGSState,
+                    save_beds: bool = False):
+        """Trace row 0, the state itself, as host numpy with a leading
+        axis of 1: the losses, no step, a NaN block, the probes and, with
+        ``save_beds``, the full bed."""
         N = self.n_chains
         sij = self.consts.sample_ij
         samples = (states.bed[:, sij[:, 0], sij[:, 1]] if sij.shape[0]
@@ -183,38 +206,60 @@ class MultiChainSampler:
             "block": torch.full((N, 4), float("nan"), device=self.device),
             "samples": samples,
         }
-        return {k: v.cpu().numpy()[None] for k, v in row.items()}
+        if save_beds:
+            row["bed"] = self.full_bed(states)
+        return {k: host_copy(v)[None] for k, v in row.items()}
 
     def run(self, states: ChainState | SGSState, n_iter: int,
             segment_size: int = 2000,
             progress: bool = True,
-            segment_callback: Optional[Callable] = None):
+            segment_callback: Optional[Callable] = None,
+            collect_beds: bool = False, fancy_progress: bool = False,
+            profile_dir: Optional[str] = None):
         """Run ``n_iter`` iterations in segments of ``segment_size`` steps.
 
         Iteration 0 records the initial state (reference loop semantics);
         ``segment_callback(cumulative_iter, states, traces_np)`` fires after
         each segment, the first carrying the initial row; at ``n_iter = 1``
-        it fires once, with that row and an empty segment.  ``progress``
-        redraws the reference's per-chain progress block
-        (``utils/progress.py``) after each segment.  Returns (states,
-        traces) with chain-major numpy traces of length n_iter.
+        it fires once, with that row and an empty segment.  Returns
+        (states, traces) with chain-major numpy traces of length n_iter.
+
+        progress: one status line a segment (iterations, chain-it/s, mean
+        loss, mean acceptance), or with ``fancy_progress`` the reference's
+        per-chain progress block (``utils/progress.py``) redrawn in place.
+        collect_beds: each chain's ``full_bed`` after every segment (the
+        empty one at ``n_iter = 1`` too) into ``traces["bed_thin"]``,
+        (n_chains, n_segments, H, W).
+        profile_dir: a ``torch.profiler`` trace (CPU, and CUDA on the card)
+        of the second segment, exported there as a Chrome trace; written
+        only when there is a second segment.
         """
         n_iter = int(n_iter)
         if n_iter < 1:
             raise ValueError("n_iter must be >= 1 (trace row 0 records "
                              "the initial state)")
-        renderer = (MultiChainProgress(self.n_chains, n_iter) if progress
-                    else None)
-        init_np = self._init_row(states)
+        renderer = (MultiChainProgress(self.n_chains, n_iter)
+                    if progress and fancy_progress else None)
+        init_np = self.initial_row(states)
         collected = []
+        bed_snaps = []
         remaining = n_iter - 1
         done = 1
         first = True
+        seg_index = 0
+        t0 = time.time()
         while remaining > 0 or first:
             n = min(int(segment_size), remaining)
             if n > 0:
+                prof = (self._profiler() if profile_dir is not None
+                        and seg_index == 1 else None)
                 states, traces = self.run_segment(states, n)
                 traces_np = {k: v.cpu().numpy() for k, v in traces.items()}
+                if prof is not None:
+                    prof.stop()
+                    os.makedirs(profile_dir, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(
+                        profile_dir, f"segment{seg_index}.pt.trace.json"))
             else:
                 traces_np = {k: v[:0] for k, v in init_np.items()}
             if first:  # the initial row travels with the first segment
@@ -222,17 +267,43 @@ class MultiChainSampler:
                              for k, v in traces_np.items()}
                 first = False
             collected.append(traces_np)
+            if collect_beds:
+                bed_snaps.append(host_copy(self.full_bed(states)))
             remaining -= n
             done += n
-            if renderer is not None:
-                renderer.update(done, states.loss_mc.cpu().numpy(),
-                                states.accepted.cpu().numpy()
-                                / max(done - 1, 1))
+            seg_index += 1
+            if progress:
+                loss_np = states.loss_mc.cpu().numpy()
+                acc_np = states.accepted.cpu().numpy() / max(done - 1, 1)
+                if renderer is not None:
+                    renderer.update(done, loss_np, acc_np)
+                else:
+                    rate = ((done - 1) * self.n_chains
+                            / max(time.time() - t0, 1e-9))
+                    print(f"[sampler] iter {done}/{n_iter} | "
+                          f"{rate:,.0f} chain-it/s | "
+                          f"loss mean {loss_np.mean():.4e} | "
+                          f"acc {acc_np.mean():.3f}", flush=True)
             if segment_callback is not None:
                 segment_callback(done, states, traces_np)
-        return states, {k: np.moveaxis(np.concatenate([c[k] for c in
-                                                       collected]), 0, 1)
-                        for k in collected[0]}
+        traces = {k: np.moveaxis(np.concatenate([c[k] for c in collected]),
+                                 0, 1)
+                  for k in collected[0]}
+        if collect_beds:
+            traces["bed_thin"] = np.stack(bed_snaps, axis=1)
+        return states, traces
+
+    def _profiler(self):
+        """A started ``torch.profiler`` over the CPU and, on the card, the
+        device."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
 
     # -- diagnostics ---------------------------------------------------------
 

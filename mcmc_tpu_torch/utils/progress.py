@@ -6,8 +6,9 @@ fixed-line ANSI renderer (reference: MCMC.py:31-39 move_cursor_to_line/
 clear_line and the per-chain progress block at MCMC.py:1379-1408): one
 status line per chain updated in place, with percent bar, it/s, ETA,
 loss, and acceptance.  The batched sampler draws it per segment instead
-of per iteration (``MultiChainSampler.run(progress=True)``, which the
-drivers and the CLI pass unless asked to be quiet).
+of per iteration (``MultiChainSampler.run(progress=True,
+fancy_progress=True)``; without ``fancy_progress`` the sampler prints one
+status line a segment, as the JAX package's does).
 """
 
 from __future__ import annotations

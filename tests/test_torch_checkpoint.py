@@ -257,7 +257,10 @@ def test_async_write_failure_raises_and_poisons_the_queue(problem, tmp_path,
 
 def test_progress_block_copy(problem, capsys):
     """The port's copy of the reference's per-chain progress block, and
-    the sampler drawing it after each segment when ``progress`` is on."""
+    the sampler drawing it after each segment when ``progress`` and
+    ``fancy_progress`` are on (``progress`` alone prints one status line a
+    segment, ``test_torch_run_api.py`` holds it against the JAX
+    sampler's)."""
     from mcmc_tpu_torch.utils.progress import (MultiChainProgress,
                                                clear_line,
                                                format_chain_line,
@@ -275,9 +278,14 @@ def test_progress_block_copy(problem, capsys):
     assert "Running 5 chains | iter 50/100" in out
     assert "... and 3 more chains" in out
     sampler = sampler_of(problem, "crf", n=2)
-    sampler.run(sampler.init(seeds=0), 5, segment_size=2, progress=True)
+    sampler.run(sampler.init(seeds=0), 5, segment_size=2, progress=True,
+                fancy_progress=True)
     out = capsys.readouterr().out
     assert "Running 2 chains | iter 3/5" in out
     assert "Running 2 chains | iter 5/5" in out and "Chain 1 (" in out
-    sampler.run(sampler.init(seeds=0), 5, segment_size=2, progress=False)
+    sampler.run(sampler.init(seeds=0), 5, segment_size=2, progress=True)
+    out = capsys.readouterr().out
+    assert "\033" not in out and out.startswith("[sampler] iter 3/5 | ")
+    sampler.run(sampler.init(seeds=0), 5, segment_size=2, progress=False,
+                fancy_progress=True)
     assert capsys.readouterr().out == ""

@@ -2,7 +2,8 @@
 CRF window kernel and Philox noise (and its keyed entry), the SGS window
 extract and writeback, the two packed CG solves (mixture system, given
 Sigma), the inverse LUT, and the per-chain draw kernel of seed-listed
-farms.
+farms; the single-chain ``run`` on the kernels, and ``geostats.sgs`` on the
+card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -646,3 +647,44 @@ def test_list_seeded_samplers_launch_the_draw_kernels(cuda_device):
         _, tr1 = one.run(one.init(seeds=seeds[1:2]), 21, segment_size=10,
                          progress=False)
         np.testing.assert_array_equal(tr["block"][1], tr1["block"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["crf", "sgs"])
+def test_single_chain_run_is_the_one_chain_farm(cuda_device, family):
+    """``run(seed=s)`` on the card: bitwise the 1-chain farm seeded [s]
+    on the kernels, with and without observers; its bed trace ends on
+    the final state's bed."""
+    make = small_chain if family == "crf" else small_sgs_chain
+    chain = make(small_problem())
+    out = chain.run(41, seed=5, save_beds=True, device=cuda_device)
+    seen = chain.run(41, seed=5, save_beds=True, device=cuda_device,
+                     progress_bar=True, info_per_iter=15)
+    sampler = MultiChainSampler(chain, 1, device=cuda_device)
+    _, tr = sampler.run(sampler.init(seeds=[5]), 41, progress=False)
+    for k, name in (("loss", "loss"), ("step", "steps"),
+                    ("block", "blocks")):
+        np.testing.assert_array_equal(out[name], tr[k][0], err_msg=k)
+        np.testing.assert_array_equal(seen[name], tr[k][0], err_msg=k)
+    np.testing.assert_array_equal(out["bed"], seen["bed"])
+    full = (out["final_state"].bed[0] if family == "crf"
+            else sampler.full_bed(out["final_state"])[0])
+    np.testing.assert_array_equal(out["bed"][-1], full.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_sgs_on_the_card_matches_the_cpu(cuda_device):
+    """``geostats.sgs`` with the same seed on the card and on the CPU: the
+    same octant picks and host draws, the beds apart only by float32
+    rounding in the kriging solves (within 5e-2 m)."""
+    from mcmc_tpu_torch.geostats import sgs
+
+    p = small_problem(H=48, W=48)
+    vario = dict(major_range=5e3, minor_range=4e3, azimuth=20.0, sill=1.0,
+                 nugget=0.05, vtype="Exponential")
+    kw = dict(radius=10e3, num_points=32, chunk=64, half_window=12, seed=4,
+              bounds=(np.full(p["xx"].shape, -900.0), p["surf"] - 1.0))
+    card = sgs(p["xx"], p["yy"], p["cond_bed"], vario, device=cuda_device,
+               **kw)
+    host = sgs(p["xx"], p["yy"], p["cond_bed"], vario, device="cpu", **kw)
+    np.testing.assert_allclose(card, host, atol=5e-2, rtol=0)

@@ -86,3 +86,73 @@ def test_builders_run_on_the_card_unless_asked(build, monkeypatch):
         build(device="cuda")
     out = build(device="cpu")
     assert out.device == torch.device("cpu") and torch.isfinite(out).all()
+
+
+def _sgs_grid():
+    p = small_problem(H=16, W=16)
+    vario = dict(major_range=3e3, minor_range=3e3, azimuth=0.0, sill=1.0,
+                 nugget=0.0, vtype="Exponential")
+    return (p["xx"], p["yy"], p["cond_bed"], vario), p
+
+
+def _sgs(**kw):
+    from mcmc_tpu_torch.geostats import sgs
+
+    args, _ = _sgs_grid()
+    return torch.as_tensor(sgs(*args, num_points=8, half_window=4, seed=1,
+                               **kw))
+
+
+def _krige(**kw):
+    from mcmc_tpu_torch.geostats import krige
+
+    args, _ = _sgs_grid()
+    return torch.as_tensor(krige(*args, num_points=8, half_window=4,
+                                 **kw)[0])
+
+
+def _initial_beds(**kw):
+    from mcmc_tpu_torch.geostats import generate_initial_beds
+
+    args, p = _sgs_grid()
+    return torch.as_tensor(generate_initial_beds(
+        *args, surf=p["surf"], num_points=8, half_window=4, **kw)[0])
+
+
+def _randfield(**kw):
+    from mcmc_tpu_torch.models import RandField
+
+    rf = RandField(3e3, 8e3, 3e3, 8e3, 20.0, 60.0, 0.0, "Matern", True, 1.3,
+                   rng_seed=2, **kw)
+    rf.set_block_sizes(12, 20, 12, 20, 3)
+    rf.set_weight_param(2.0, 0.0, 6.0, 1.0, 5e3, 500.0)
+    x = np.arange(24) * 500.0
+    return torch.as_tensor(np.concatenate([rf.get_random_field(x, x).ravel(),
+                                           rf.get_rfblock().ravel()]))
+
+
+def _run(family):
+    def run(**kw):
+        make = small_chain if family == "crf" else small_sgs_chain
+        chain = make(small_problem(H=48, W=48))
+        return torch.as_tensor(chain.run(3, seed=1, **kw)["loss"])
+
+    return run
+
+
+@pytest.mark.parametrize(
+    "call", [_sgs, _krige, _initial_beds, _randfield, _run("crf"),
+             _run("sgs")],
+    ids=["sgs", "krige", "generate_initial_beds", "RandField",
+         "ChainCRF.run", "ChainSGS.run"])
+def test_new_entry_points_run_on_the_card_unless_asked(call, monkeypatch):
+    """The geostats entry points, the RandField wrapper's draws and the
+    single-chain runs: leaving the device out means the card, which here
+    raises naming device='cpu'; asking for the CPU runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(device="cuda")
+    out = call(device="cpu")
+    assert out.device == torch.device("cpu") and torch.isfinite(out).all()

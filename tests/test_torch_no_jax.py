@@ -76,3 +76,34 @@ def _imported_roots(path):
 def test_file_imports_no_jax(path):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "mcmc_tpu"}, (path, roots)
+
+
+NEW_MODULES = """
+import sys
+import mcmc_tpu_torch
+print(int("matplotlib" in sys.modules))
+import mcmc_tpu_torch.geostats, mcmc_tpu_torch.utils.plotting
+import mcmc_tpu_torch.ops.neighbors, mcmc_tpu_torch.ops.kriging
+from mcmc_tpu_torch.models import RandField
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mcmc_tpu"))
+print(int("matplotlib" in sys.modules))
+print(",".join(bad))
+"""
+
+
+def test_geostats_and_plotting_import_without_jax_or_matplotlib():
+    """``geostats`` and ``utils/plotting`` are the port's own copies: they
+    import no JAX, and neither they nor the package import matplotlib
+    (the card's machine has none; ``plotting`` imports it when it
+    draws)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", NEW_MODULES], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    after_package, after_all, bad = out.stdout.split("\n")[:3]
+    assert (after_package, after_all) == ("0", "0")
+    assert bad == "", f"imported: {bad}"
