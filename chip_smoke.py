@@ -119,7 +119,25 @@ line or more each:
    seed's bitwise; ``krige`` at 512^2; the same call on a 128^2 cut on
    the card and on the CPU within 5e-2 m; the beds as a 2-chain CRF
    farm's initial beds for 50 steps; seconds a bed, host ms a chunk and
-   the device-idle share of 20 profiled chunks.
+   the device-idle share of 20 profiled chunks;
+19. the gstools-SRF proposal method (``[srf]``, last): the SRF kernel
+   (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes) against
+   its plain version at the CRF headline (768 chains x 80 x 80, Matern),
+   with anisotropic Exponential ranges and azimuths (its cells beyond the
+   bound counted) and at one 512 x 512 field, each with its time, the
+   plain version's, the bound, registers and resident CTAs; the SRF step
+   on its kernels against the plain step (10 steps, at most 1e-3 of MH
+   decisions flipping); the SRF farm's main path (ChainCRF with
+   ``spectral=False`` -> MultiChainSampler(chain, 768) -> init(seeds=0)
+   -> run(2 x 150) -> diagnostics: the SRF and window kernels once a
+   step, the noise kernel never, the loss finite and falling, acceptance
+   in (0.02, 0.98), the bed outside the region untouched; chain-it/s and
+   a profiled window); a 768-seed SRF farm and the 1-chain farm of its
+   first seed (one draw-kernel launch a step, chain 0's draws bitwise over
+   50 steps); the SRF farm through ``mcmc_tpu_torch.cli.main``, 200
+   iterations resumed to 300, bitwise against 300 straight; and
+   ``RandField.get_random_field`` at 512^2 by the SRF method (seconds a
+   field, the same seed's bits again).
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -127,16 +145,17 @@ proposals with block menu 50-80 in 5 steps; and the SGS chain at the
 reference's production settings (blocks 5-20, 48 neighbours within
 30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
 10 km).  The second-to-last line is a JSON object describing the seven
-kernels and the per-chain draw kernel: each one's launches on the path
-that runs it (counts set to 0 just before the path and read just
-after; the draw kernel's over phase 14's SGS list-seeded runs, whose
-draw plan its times are from), its error against its plain version, its
+kernels, the per-chain draw kernel and the SRF kernel: each one's
+launches on the path that runs it (counts set to 0 just before the path
+and read just after; the draw kernel's over phase 14's SGS list-seeded
+runs, whose draw plan its times are from; the SRF kernel's over phase
+19's main path, its times from the headline case), its error against its plain version, its
 time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger)
 and, where one PyTorch call computes the same function, that call's
-time.  Phases 16-18 run last and count their own launches, so the line's
-``launches`` are those of the paths above.  The last line is the JSON
+time.  Phases 16-19 run last and count their own launches, so the line's
+``launches`` are those of the paths above (the SRF kernel's its own).  The last line is the JSON
 contract ``{"ok": true, "device": ...}``.
 """
 
@@ -166,7 +185,7 @@ SGS_PARITY_STEPS = 10
 SGS_SEGMENTS = 3
 SGS_SEGMENT = 400
 KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
-                  "lut_kernel", "noise_kernel", "chain_draws")
+                  "lut_kernel", "noise_kernel", "chain_draws", "srf_kernel")
 NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
 K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
@@ -189,6 +208,12 @@ GEO_SEED = 11            # [geostats]: the first bed's seed
 GEO_CUT = 128            # [geostats]: the card-vs-CPU cut of the grid
 GEO_PROFILE_CHUNKS = 20
 GEO_FARM_STEPS = 50
+SRF_PARITY_STEPS = 10    # [srf]: the SRF step on its kernels vs plain
+SRF_SEGMENTS, SRF_SEGMENT = 2, 150  # [srf]: the SRF farm's main path
+SRF_SEED_STEPS = 50      # [srf]: the seed-listed pair's steps
+SRF_ENTRY_ITERS = (200, 300)  # [srf]: CLI run, then resume to
+SRF_FIELD = 512          # [srf]: get_random_field's grid side
+SRF_FIELDS = 5           # [srf]: fields timed
 ROOT = Path(__file__).resolve().parent
 # (wrapper, source under mcmc_tpu_torch/ops/csrc, the Pallas kernel it
 # replaces): every function of the JAX package that reaches pallas_call
@@ -206,6 +231,9 @@ KERNELS = (
     # the port's own kernel: the seed-listed farms' per-chain draws, which
     # the JAX package makes with jax.random (no pallas_call) at this site
     ("chain_draws", "chain_draws.cu", "mcmc_tpu/models/chain_sgs.py:874"),
+    # the port's own kernel: the gstools-SRF proposal's harmonic sum, which
+    # the JAX package computes with XLA ops (no pallas_call) at this site
+    ("srf_harmonics", "srf_kernel.cu", "mcmc_tpu/ops/srf.py:121"),
 )
 
 # kernel vs plain version bounds
@@ -237,6 +265,13 @@ NOISE_ODD_SHAPE = (5, 18, 7)  # 63 pairs a chain: odd
 GEO_DATA_ATOL = 1.0      # m
 GEO_BOUND_ATOL = 1e-3    # m
 GEO_CPU_ATOL = 5e-2      # m
+# the SRF kernel against its plain version: the same float32 phases and
+# sin/cos (accurate sincosf against PyTorch's CUDA sin and cos), the sums
+# of 1000 terms of a unit-variance field in another order.  For the
+# Exponential model the cells beyond the bound are counted, not refused:
+# its phases reach 1e8 rad, where the last bit of a phase is another
+# cosine.
+SRF_ATOL = 2e-5
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -2591,6 +2626,340 @@ def phase_geostats(p, card):
     return dict(seconds_per_bed=per_bed, chunks=n_chunks)
 
 
+def make_srf_chain(p):
+    """The CRF headline chain with the gstools-SRF generation method."""
+    chain = make_chain(p)
+    chain._rf_cfg = dataclasses.replace(chain._rf_cfg, spectral=False)
+    return chain
+
+
+def _srf_operands(gen, n, model, isotropic, dev):
+    """(kv, z1, z2) of ``n`` chains from ``gen``: the ranges 10-50 km
+    (and, anisotropic, azimuths), as the farm draws them."""
+    import torch
+
+    from mcmc_tpu_torch.ops.srf import draw_srf, sample_wavevectors
+
+    u, theta, z1, z2, angle = draw_srf(gen, n, isotropic, dev)
+    rx = 10e3 + 40e3 * torch.rand((n,), generator=gen, device=dev)
+    ry = rx if isotropic else 10e3 + 40e3 * torch.rand(
+        (n,), generator=gen, device=dev)
+    return sample_wavevectors(u, theta, model, rx, ry, 1.3, angle), z1, z2
+
+
+def _srf_kernel_cases(card):
+    """The SRF kernel against its plain version at the farm's headline
+    (768 chains x 80 x 80, Matern), with anisotropic Exponential ranges
+    and azimuths, and at one 512 x 512 field; each case's error, time,
+    plain time and bound.  Returns the headline's kernel-table row."""
+    import torch
+
+    from mcmc_tpu_torch.ops.srf_kernel import (srf_harmonics,
+                                               srf_harmonics_reference,
+                                               srf_kernel_info)
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    info = srf_kernel_info(1000)
+    row = None
+    B = 80  # the headline's canvas: blocks up to 80
+    for tag, model, iso, n, ny, nx in (
+            ("headline", "Matern", True, N_CHAINS, B, B),
+            ("exponential-aniso", "Exponential", False, N_CHAINS, B, B),
+            ("field", "Matern", True, 1, SRF_FIELD, SRF_FIELD)):
+        kv, z1, z2 = _srf_operands(gen, n, model, iso, dev)
+        M = kv.shape[-1]
+        op = (kv, z1, z2, ny, nx, RES)
+        got = srf_harmonics(*op)
+        want = srf_harmonics_reference(*op)
+        err = (got - want).abs()
+        max_err = float(err.max())
+        beyond = int((err > SRF_ATOL).sum())
+        plain_ms, ms = _pair_times(srf_harmonics_reference, srf_harmonics,
+                                   [op])
+        work = float(n) * ny * nx * M
+        bound_ms, by = _bound(4.0 * (4 * n * M + n * ny * nx), 4.0 * work)
+        print(f"[srf] kernel {tag}: {model} {n} x {ny} x {nx}, M {M}: max "
+              f"|err| {max_err:.3e} against the plain version, {beyond} "
+              f"cells beyond {SRF_ATOL:g} | {ms:.4f} ms a launch "
+              f"({work / ms / 1e6:.2f} G terms/s), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({by}) -> {bound_ms / ms:.3f} of it "
+              f"| {info['registers']} registers, {info['local_bytes']} local "
+              f"bytes, {info['resident_ctas_per_sm']} resident CTAs/SM "
+              f"({card})", flush=True)
+        if model != "Exponential" and beyond:
+            raise RuntimeError(f"the SRF kernel departs from its plain "
+                               f"version ({tag}: {max_err:.3e})")
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"non-finite SRF fields ({tag})")
+        if tag == "headline":
+            row = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=by, library_ms=None)
+    return row
+
+
+def _srf_step_vs_plain(chain, card):
+    """The SRF step on its kernels (SRF, window) against the plain step
+    from the same state and generator state: SRF_PARITY_STEPS steps at
+    768 chains, at most FLIP_RATE_MAX of the MH decisions flipping."""
+    import torch
+
+    from mcmc_tpu_torch.models.chain_crf import init_state, make_step
+    from mcmc_tpu_torch.utils.rng import make_generator
+
+    static, consts = chain.build(torch.device(DEVICE))
+    fused = make_step(static, "auto")
+    plain = make_step(static, "eager")
+    state = init_state(chain.initial_bed, consts, N_CHAINS)
+    gen = make_generator(6, DEVICE)
+    n_flip = 0
+    for _ in range(SRF_PARITY_STEPS):
+        shadow = _clone_state(state)
+        gen_p = torch.Generator(device=DEVICE)
+        gen_p.set_state(gen.get_state())
+        _, tr_p = plain(consts, shadow, gen_p)
+        del shadow
+        state, tr = fused(consts, state, gen)
+        n_flip += int((tr["step"] != tr_p["step"]).sum())
+    flip_rate = n_flip / (SRF_PARITY_STEPS * N_CHAINS)
+    print(f"[srf] step: {SRF_PARITY_STEPS} steps x {N_CHAINS} chains on the "
+          f"kernels against the plain step (same draws): MH flips {n_flip} "
+          f"= {flip_rate:.3e} (bound {FLIP_RATE_MAX:g}) ({card})",
+          flush=True)
+    if flip_rate > FLIP_RATE_MAX:
+        raise RuntimeError("the SRF step on the kernels departs from the "
+                           "plain one")
+
+
+def _srf_main_path(chain, card):
+    """ChainCRF -> MultiChainSampler(chain, 768) -> init(seeds=0) ->
+    run(SRF_SEGMENTS x SRF_SEGMENT) -> diagnostics with the SRF method:
+    the SRF and window kernels once a step, the noise kernel never; the
+    loss finite and falling, acceptance in (0.02, 0.98), the bed outside
+    the update region untouched; then a profiled window.  Returns the
+    SRF kernel's launches."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                                 batched_normal_keyed)
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+    from mcmc_tpu_torch.ops.window_kernel import fused_window_update
+
+    kernels = (srf_harmonics, fused_window_update, batched_normal,
+               batched_normal_keyed)
+    sampler = MultiChainSampler(chain, N_CHAINS, device=DEVICE)
+    states = sampler.init(seeds=0)
+    bed0 = states.bed[0].clone()
+    n_iter = SRF_SEGMENTS * SRF_SEGMENT + 1
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, traces = sampler.run(states, n_iter, segment_size=SRF_SEGMENT,
+                                 progress=False)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    steps = n_iter - 1
+    loss = traces["loss"]
+    acc = float(np.mean(traces["step"][:, 1:]))
+    outside = ~(sampler.consts.update_mask > 0)
+    moved = int((states.bed[:, outside] != bed0[outside]).sum())
+    diag = sampler.diagnostics(traces, elapsed)
+    print(f"[srf] main path: {steps} steps x {N_CHAINS} chains in "
+          f"{elapsed:.3f} s: {diag['chain_iters_per_sec']:,.0f} chain-it/s, "
+          f"{elapsed / steps * 1e3:.3f} ms a step | ESS(loss) "
+          f"{diag['ess_loss']:.1f} | acc {acc:.3f} | loss mean "
+          f"{loss[:, 0].mean():.6e} -> {loss[:, -1].mean():.6e} | launches "
+          f"{launches} ({card})", flush=True)
+    want = {"srf_harmonics": steps, "fused_window_update": steps,
+            "batched_normal": 0, "batched_normal_keyed": 0}
+    if launches != want:
+        raise RuntimeError(f"SRF main path launches {launches}, want {want}")
+    if not np.isfinite(loss).all():
+        raise RuntimeError("non-finite loss on the SRF main path")
+    if not loss[:, -1].mean() < loss[:, 0].mean():
+        raise RuntimeError("the SRF loss did not decrease")
+    if not 0.02 < acc < 0.98:
+        raise RuntimeError(f"SRF acceptance {acc:.3f} outside (0.02, 0.98)")
+    if moved:
+        raise RuntimeError(f"{moved} bed cells outside the update region "
+                           "changed on the SRF path")
+    busy_share(sampler, states, card, elapsed / steps * 1e6, n_steps=20,
+               watch=("srf",), tag="srf-profile")
+    return launches["srf_harmonics"]
+
+
+def _srf_seed_list(chain, card):
+    """A 768-seed SRF farm and the 1-chain farm of its first seed,
+    SRF_SEED_STEPS steps each: one draw-kernel launch a step and no keyed
+    noise; chain 0's draws bitwise equal (and its traces, reported)."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.noise_kernel import batched_normal_keyed
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+
+    n_iter = SRF_SEED_STEPS + 1
+    kernels = (chain_draws, batched_normal_keyed, srf_harmonics)
+    traces = {}
+    for n in (N_CHAINS, 1):
+        for k in kernels:
+            k.launches = 0
+        sampler = MultiChainSampler(chain, n, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, traces[n] = sampler.run(sampler.init(seeds=_seed_list(n)),
+                                   n_iter, segment_size=n_iter,
+                                   progress=False)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        print(f"[srf] seed-listed {n} chains, seeds [{_seed_list(n)[0]}, "
+              f"...]: {SRF_SEED_STEPS} steps in {elapsed:.3f} s | launches "
+              f"{launches} ({card})", flush=True)
+        want = {"chain_draws": SRF_SEED_STEPS, "batched_normal_keyed": 0,
+                "srf_harmonics": SRF_SEED_STEPS}
+        if launches != want:
+            raise RuntimeError(f"seed-listed SRF launches {launches}")
+    n_diff, n_values = _draws_vs_chain0(chain, N_CHAINS, SRF_SEED_STEPS)
+    same = {k: bool(np.array_equal(traces[N_CHAINS][k][0], traces[1][k][0],
+                                   equal_nan=True))
+            for k in ("loss", "step", "block")}
+    print(f"[srf] chain 0 of {N_CHAINS} against the 1-chain farm: "
+          f"{n_diff} of {n_values:,} draw values differ over "
+          f"{SRF_SEED_STEPS} steps (bound 0) | traces bitwise (not gated): "
+          f"{same} ({card})", flush=True)
+    if n_diff:
+        raise RuntimeError("chain 0's SRF draws depend on the other chains")
+
+
+def _srf_cli_config(n_iter, out):
+    """``make_srf_chain``'s configuration as a CLI config."""
+    return {
+        "family": "crf", "dataset": "dataset.npz",
+        "update_region": {"in_region": True, "mask": "region"},
+        "loss": {"sigma_mc": SIGMA_MC, "mass_conv_in_region": True},
+        "crf": {
+            "update_type": "CRF_weight",
+            "randfield": {"range_min_x": 10e3, "range_max_x": 50e3,
+                          "range_min_y": 10e3, "range_max_y": 50e3,
+                          "scale_min": 50, "scale_max": 150,
+                          "nugget_max": 0.0, "model_name": "Matern",
+                          "isotropic": True, "smoothness": 1.3,
+                          "spectral": False},
+            "blocks": {"min_block_x": 50, "max_block_x": 80,
+                       "min_block_y": 50, "max_block_y": 80, "steps": 5},
+            "weight": {"L": 2, "x0": 0, "k": 6, "offset": 1,
+                       "max_dist": 30e3}},
+        "farm": {"n_chains": N_CHAINS, "n_iter": n_iter, "rng_seeds": 0,
+                 "output_path": out, "segment_size": 100,
+                 "checkpoint_every": SRF_ENTRY_ITERS[0]},
+        "save": {"final_beds": f"{out}_beds.npy",
+                 "histories": f"{out}_hist.npz"}}
+
+
+def _srf_entry(p, card):
+    """The CLI with ``crf.randfield.spectral: false`` at 768 chains:
+    SRF_ENTRY_ITERS[0] iterations resumed to SRF_ENTRY_ITERS[1], bitwise
+    against an uninterrupted run in traces and final beds."""
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+
+    first, total = SRF_ENTRY_ITERS
+    srf_harmonics.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        _write_dataset(p, tmp / "dataset.npz")
+        t0 = time.perf_counter()
+        for n_iter, out in ((first, "resumed"), (total, "resumed"),
+                            (total, "straight")):
+            _cli_run(tmp, _srf_cli_config(n_iter, out))
+        elapsed = time.perf_counter() - t0
+        same = {}
+        with np.load(tmp / "resumed_hist.npz") as a, \
+                np.load(tmp / "straight_hist.npz") as b:
+            for key in a.files:
+                same[key] = bool(np.array_equal(
+                    a[key], b[key], equal_nan=a[key].dtype.kind == "f"))
+            loss = a["loss"]
+        same["final_beds"] = bool(np.array_equal(
+            np.load(tmp / "resumed_beds.npy"),
+            np.load(tmp / "straight_beds.npy")))
+    steps = (first - 1) + (total - first) + (total - 1)
+    print(f"[srf] entry: the SRF CRF farm, {N_CHAINS} chains x {GRID}^2 "
+          f"through python -m mcmc_tpu_torch: {first} iterations resumed to "
+          f"{total} and {total} straight in {elapsed:.1f} s with builds and "
+          f"checkpoints | resumed == uninterrupted, bitwise: {same} | loss "
+          f"mean {loss[:, 0].mean():.6e} -> {loss[:, -1].mean():.6e} | SRF "
+          f"kernel launches {srf_harmonics.launches} in {steps} steps "
+          f"({card})", flush=True)
+    if not all(same.values()):
+        raise RuntimeError("the resumed SRF farm departs from the "
+                           "uninterrupted one")
+    if loss.shape != (N_CHAINS, total) or not np.isfinite(loss).all():
+        raise RuntimeError(f"SRF CLI traces {loss.shape}")
+    if srf_harmonics.launches != steps:
+        raise RuntimeError(f"the SRF kernel ran {srf_harmonics.launches} "
+                           f"times in {steps} steps")
+
+
+def _srf_random_field(card):
+    """``RandField.get_random_field`` at 512^2 by the SRF method: seconds
+    a field, one kernel launch a field, the same seed's bits again."""
+    import torch
+
+    from mcmc_tpu_torch.models.randfield import RandField
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+
+    def wrapper():
+        rf = RandField(10e3, 50e3, 10e3, 50e3, 50, 150, 0.0, "Matern", True,
+                       1.3, rng_seed=77, device=DEVICE)
+        rf.set_generation_method(False)
+        return rf
+
+    X = np.arange(SRF_FIELD) * RES
+    rf = wrapper()
+    first = rf.get_random_field(X, X)  # warm
+    srf_harmonics.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = rf.get_random_field(X, X, SRF_FIELDS)
+    seconds = (time.perf_counter() - t0) / SRF_FIELDS
+    launches = srf_harmonics.launches
+    again = wrapper().get_random_field(X, X)
+    same = bool(np.array_equal(first, again))
+    stds = fields.reshape(SRF_FIELDS, -1).std(axis=1)
+    print(f"[srf] get_random_field {SRF_FIELD}^2 (SRF): {seconds:.4f} s a "
+          f"field over {SRF_FIELDS}, {launches} kernel launches | field "
+          f"std {np.round(stds, 2).tolist()} (scaled, not standardized) | "
+          f"same seed bitwise: {same} ({card})", flush=True)
+    if launches != SRF_FIELDS or not same:
+        raise RuntimeError("get_random_field by the SRF method: launches "
+                           f"{launches}, same seed {same}")
+    if fields.shape != (SRF_FIELDS, SRF_FIELD, SRF_FIELD) or not (
+            np.isfinite(fields).all()):
+        raise RuntimeError(f"SRF fields {fields.shape}")
+
+
+def phase_srf(p, card):
+    """The gstools-SRF proposal method (``[srf]``, module docstring phase
+    19): the SRF kernel against its plain version, the SRF step against
+    the plain step, the SRF farm's main path, the seed-listed pair, the
+    CLI resumed bitwise and ``get_random_field`` at 512^2.  Returns (the
+    kernel table's row, the SRF kernel's launches on the main path)."""
+    row = _srf_kernel_cases(card)
+    chain = make_srf_chain(p)
+    _srf_step_vs_plain(chain, card)
+    launches = _srf_main_path(chain, card)
+    _srf_seed_list(chain, card)
+    _srf_entry(p, card)
+    _srf_random_field(card)
+    return row, launches
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
                watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
@@ -2677,6 +3046,9 @@ def main():
         t0 = time.perf_counter()
         phase(p, card)
         print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows["srf_harmonics"], launches["srf_harmonics"] = phase_srf(p, card)
+    print(f"[srf] phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": "mcmc_tpu_torch/ops/csrc/" + source,

@@ -6,7 +6,9 @@ small-scale SGS (block re-simulation) chain farm, their drivers,
 checkpoint/resume and CLI, with every Pallas TPU kernel of the JAX
 package as a hand-written CUDA kernel for Hopper (``ops/csrc/*.cu``: the
 CRF window update and Philox proposal noise; the SGS window extract and
-writeback, the two packed CG solves and the inverse LUT).  The JAX
+writeback, the two packed CG solves and the inverse LUT), and two of the
+port's own: the seed-listed farms' per-chain draws and the gstools-SRF
+proposal's harmonic sum (``spectral=False``).  The JAX
 package ``mcmc_tpu`` is the reference that every part of this package is
 tested against; this package imports neither it nor JAX.  Everything runs
 on the card unless the caller asks for the CPU.
@@ -24,7 +26,9 @@ or, with checkpoint/resume, ``drivers.large_scale_chain_farm`` /
 One chain: ``chain.run(n_iter, ...)`` (a one-chain farm).  Initial beds
 (the T2 workflow): ``geostats.fit_variogram`` on the radar picks, then
 ``geostats.generate_initial_beds`` (SGS on the card), handed to
-``sampler.init(initial_beds=...)``.
+``sampler.init(initial_beds=...)``.  The data layer (gridding radar
+picks, regridding, masks, radar QC) is ``mcmc_tpu_torch.data``, host
+code that the package does not import.
 """
 
 from . import geostats

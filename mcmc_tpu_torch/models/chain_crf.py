@@ -3,8 +3,10 @@
 PyTorch counterpart of ``mcmc_tpu/models/chain_crf.py`` (the reference's
 ``chain_crf``, MCMC.py:1083-1443).  The algorithm is the same:
 
-- Block proposals come from one (B, B) spectral FFT per chain; the discrete
-  size menu is handled by masks.
+- Block proposals come from one (B, B) spectral FFT per chain or, with
+  the gstools-SRF method (``spectral=False``), one (B, B) sum of 1000
+  harmonics per chain (``ops/srf.py``, the SRF kernel); the discrete size
+  menu is handled by masks.
 - The block centre is drawn uniformly over the precomputed region cells.
 - Residual and loss updates are block-local: the fused window op
   (``ops/window_kernel.py``) recomputes the numpy-gradient residual on the
@@ -41,6 +43,8 @@ from ..ops.distance import min_dist_from_mask
 from ..ops.logistic import crf_weight_from_dist
 from ..ops.physics import masked_gaussian_loss, mass_conservation_residual
 from ..ops.spectral import half_spectrum_noise, spectral_field_from_noise
+from ..ops.srf import (draw_srf, sample_wavevectors, srf_draws_from,
+                       srf_entries, srf_field)
 from ..ops.window_kernel import (fused_window_update,
                                  fused_window_update_reference,
                                  window_geometry)
@@ -50,7 +54,8 @@ from ..utils.rng import (PerChainStreams, is_seed_list, resolve_device,
                          resolve_seed)
 from .randfield import (RandFieldArrays, RandFieldStatic,
                         block_param_entries, block_params_from,
-                        build_randfield, draw_block_params, finish_block)
+                        build_randfield, draw_block_params, finish_block,
+                        finish_block_srf)
 
 IMPLS = ("auto", "eager", "fused")
 
@@ -156,17 +161,25 @@ class ChainState:
 @dataclasses.dataclass
 class Draws:
     """One step's random draws for every chain (the injection seam that
-    parity tests fill with numpy draws)."""
+    parity tests fill with numpy draws).  The spectral method draws
+    ``noise``; the gstools-SRF method (``spectral=False``) draws
+    ``wave_u``, ``wave_theta``, ``z1``, ``z2`` and, anisotropic,
+    ``angle`` (``ops/srf.py``) instead."""
 
-    noise: torch.Tensor      # (N, B, B//2+1) complex64 half-spectrum noise
     size_idx: torch.Tensor   # (N,) int64 block-menu index
     scale: torch.Tensor      # (N,) float32, already divided by 3
     range_x: torch.Tensor    # (N,) float32
     range_y: torch.Tensor    # (N,) float32
     cidx: torch.Tensor       # (N,) int64 index into region_cells
     u: torch.Tensor          # (N,) float32 MH uniform
+    noise: Optional[torch.Tensor] = None  # (N, B, B//2+1) complex64
     nug: Optional[torch.Tensor] = None           # (N,), nugget configs only
     nugget_noise: Optional[torch.Tensor] = None  # (N, B, B)
+    wave_u: Optional[torch.Tensor] = None      # (N, 1000) radius uniforms
+    wave_theta: Optional[torch.Tensor] = None  # (N, 1000) angle uniforms
+    z1: Optional[torch.Tensor] = None          # (N, 1000) cosine normals
+    z2: Optional[torch.Tensor] = None          # (N, 1000) sine normals
+    angle: Optional[torch.Tensor] = None       # (N,) azimuth, anisotropic
 
 
 def init_state(beds, consts: CRFConsts, n_chains: Optional[int] = None
@@ -202,26 +215,34 @@ def init_state(beds, consts: CRFConsts, n_chains: Optional[int] = None
 
 def draw_plan_entries(static: CRFStatic):
     """A seed-listed CRF step's draw plan: the block's size index and
-    variogram parameters, the centre index, the MH uniform and, with a
-    nugget, the (B, B) nugget normals; the half-spectrum noise is the
-    keyed noise kernel's."""
+    variogram parameters, the centre index, the MH uniform, with a
+    nugget the (B, B) nugget normals and, by the gstools-SRF method, the
+    SRF draws (``ops/srf.srf_entries``); the spectral method's
+    half-spectrum noise is the keyed noise kernel's."""
     B = static.rf.B
     nugget = ((entry("nugget_noise", "normal", B * B),)
               if static.rf.has_nugget else ())
+    srf = () if static.rf.spectral else srf_entries(static.rf.isotropic)
     return (block_param_entries(static.rf)
             + (entry("cidx", "index", n=static.n_region),
-               entry("u", "uniform")) + nugget)
+               entry("u", "uniform")) + nugget + srf)
 
 
 def draw(gen, static: CRFStatic, consts: CRFConsts, n: int,
          impl: str = "auto") -> Draws:
     """One step's draws for ``n`` chains from ``gen``, a generator or
-    per-chain streams (``draw_plan_entries``).  The half-spectrum noise
-    comes from the Philox kernel, or its plain version under
-    ``impl="eager"`` (``ops/spectral.half_spectrum_noise``), as do the
-    per-chain draws."""
+    per-chain streams (``draw_plan_entries``).  The spectral method's
+    half-spectrum noise comes from the Philox kernel, or its plain
+    version under ``impl="eager"`` (``ops/spectral.half_spectrum_noise``),
+    as do the per-chain draws.  From a generator the order is: the size
+    index and variogram parameters (``draw_block_params``), then the
+    half-spectrum noise's seed or, by the gstools-SRF method, the SRF
+    draws (``ops/srf.draw_srf``), then the nugget normals (with a
+    nugget), the centre index and the MH uniform."""
     B = static.rf.B
     device = consts.stacked.device
+    srf = {}
+    noise = None
     if isinstance(gen, PerChainStreams):
         if gen.n_chains != n:
             raise ValueError(f"{gen.n_chains} per-chain streams for {n} "
@@ -229,14 +250,20 @@ def draw(gen, static: CRFStatic, consts: CRFConsts, n: int,
         d = draw_plan(gen, cached_plan(draw_plan_entries(static)), impl)
         size_idx, scale, nug, range_x, range_y = block_params_from(
             d, static.rf, consts.rf)
-        noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        if static.rf.spectral:
+            noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        else:
+            srf = srf_draws_from(d, static.rf.isotropic)
         nugget_noise = (d["nugget_noise"].view(n, B, B)
                         if static.rf.has_nugget else None)
         cidx, u = d["cidx"][:, 0], d["u"][:, 0]
     else:
         size_idx, scale, nug, range_x, range_y = draw_block_params(
             gen, n, static.rf, consts.rf)
-        noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        if static.rf.spectral:
+            noise = half_spectrum_noise(gen, n, (B, B), device, impl)
+        else:
+            srf = draw_srf(gen, n, static.rf.isotropic, device)
         nugget_noise = None
         if static.rf.has_nugget:
             nugget_noise = torch.randn((n, B, B), generator=gen,
@@ -244,16 +271,29 @@ def draw(gen, static: CRFStatic, consts: CRFConsts, n: int,
         cidx = torch.randint(0, static.n_region, (n,), generator=gen,
                              device=device)
         u = torch.rand((n,), generator=gen, device=device)
+    if srf:
+        srf = dict(zip(("wave_u", "wave_theta", "z1", "z2", "angle"), srf))
     return Draws(noise=noise, size_idx=size_idx, scale=scale,
                  range_x=range_x, range_y=range_y, cidx=cidx, u=u,
                  nug=nug if static.rf.has_nugget else None,
-                 nugget_noise=nugget_noise)
+                 nugget_noise=nugget_noise, **srf)
 
 
-def propose(static: CRFStatic, consts: CRFConsts, d: Draws):
-    """The proposal fields for the window op: raw spectral fields, which
-    the op finishes itself, or, with a nugget, fields finished here."""
+def propose(static: CRFStatic, consts: CRFConsts, d: Draws,
+            impl: str = "auto"):
+    """The proposal fields for the window op.  Spectral: raw fields, which
+    the op finishes itself, or, with a nugget, fields finished here.
+    gstools-SRF: fields finished here (``finish_block_srf``), their
+    harmonic sum the SRF kernel's, or its plain version under
+    ``impl="eager"``."""
     rf = static.rf
+    if not rf.spectral:
+        kv = sample_wavevectors(d.wave_u, d.wave_theta, rf.model_name,
+                                d.range_x, d.range_y, rf.smoothness,
+                                d.angle)
+        raw = srf_field(kv, d.z1, d.z2, (rf.B, rf.B), rf.resolution, impl)
+        return finish_block_srf(raw, d.size_idx, d.scale, consts.rf,
+                                d.nugget_noise, d.nug)
     raw = spectral_field_from_noise(d.noise, (rf.B, rf.B), rf.resolution,
                                     rf.model_name, d.range_x, d.range_y,
                                     rf.smoothness)
@@ -286,7 +326,8 @@ def make_kernel(static: CRFStatic, impl: str = "auto"):
     ``(consts, state, f, size_idx, scale, cx, cy, u) -> (state, trace)``.
 
     ``f`` holds raw spectral fields (finished by the window op) or, when
-    the configuration has a nugget, finished fields.  ``impl`` "auto" or
+    the configuration has a nugget or takes the gstools-SRF method,
+    finished fields (JAX ``chain_crf.py:383``).  ``impl`` "auto" or
     "fused" runs the dispatcher (the CUDA kernel for CUDA tensors, the
     plain version for CPU ones); "eager" always runs the plain version.
     ``state.fields`` is updated in place."""
@@ -294,7 +335,7 @@ def make_kernel(static: CRFStatic, impl: str = "auto"):
         raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
     window_op = (fused_window_update_reference if impl == "eager"
                  else fused_window_update)
-    prefinished = static.rf.has_nugget
+    prefinished = static.rf.has_nugget or not static.rf.spectral
 
     def mh_update(consts: CRFConsts, state: ChainState, f, size_idx, scale,
                   cx, cy, u):
@@ -352,18 +393,19 @@ def sample_probes(beds, sample_ij, n):
 
 def make_step(static: CRFStatic, impl: str = "auto"):
     """Build the full batched MH step: ``(consts, state, gen) -> (state,
-    trace)`` (draws, spectral proposal, window op, ledger, trace), ``gen``
-    a generator or per-chain streams (``draw``; the caller advances the
+    trace)`` (draws, proposal, window op, ledger, trace), ``gen`` a
+    generator or per-chain streams (``draw``; the caller advances the
     streams' step).  The draws' half-spectrum noise comes from the Philox
-    kernel (``ops/noise_kernel.py``), and under ``impl="eager"`` from its
-    plain version, like the window op."""
+    kernel (``ops/noise_kernel.py``), a gstools-SRF proposal's harmonic
+    sum from the SRF kernel (``ops/srf_kernel.py``), and under
+    ``impl="eager"`` each from its plain version, like the window op."""
     mh_update = make_kernel(static, impl)
 
     def step(consts: CRFConsts, state: ChainState, gen):
         d = draw(gen, static, consts, state.fields.shape[0], impl)
         cx = consts.region_cells[d.cidx, 0]
         cy = consts.region_cells[d.cidx, 1]
-        return mh_update(consts, state, propose(static, consts, d),
+        return mh_update(consts, state, propose(static, consts, d, impl),
                          d.size_idx, d.scale, cx, cy, d.u)
 
     return step

@@ -8,9 +8,12 @@ take a ``torch.Generator``; a seed-listed farm's step reads the same
 values from its draw plan's views (``block_params_from``).  ``RandField``
 is the reference-API wrapper over all of it.
 
-Only the spectral generation method is ported: the gstools-SRF method
-(``spectral=False``, ``mcmc_tpu/ops/srf.py``) waits for ROADMAP Queue 1
-#3.
+Both of the reference's generation methods: ``spectral=True``, FFT
+spectral synthesis standardized over the block (``finish_block``), and
+``spectral=False``, the gstools-SRF randomization method
+(``ops/srf.py``, MCMC.py:657-687): 1000 harmonics a field summed by the
+port's SRF kernel, NOT standardized, the nugget's white noise added
+before the scale (``finish_block_srf``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..ops.logistic import make_edge_mask
 from ..ops.spectral import (block_mask, field_param_entries, field_params,
                             sample_field_params, spectral_field,
                             standardize_masked)
+from ..ops.srf import draw_srf, sample_wavevectors, srf_field
 from ..utils.config import BlockMenuConfig, RandFieldConfig, WeightConfig
 from ..utils.rng import make_generator, resolve_device, resolve_seed
 
@@ -69,19 +73,11 @@ class RandFieldArrays:
     range_max_y: float
 
 
-def _require_spectral(spectral: bool):
-    if not spectral:
-        raise NotImplementedError(
-            "the gstools-SRF generation method (spectral=False) is not "
-            "ported yet: ROADMAP Queue 1 #3 (ops/srf.py)")
-
-
 def build_randfield(rf_cfg: RandFieldConfig, blocks: BlockMenuConfig,
                     weights: WeightConfig, device=None
                     ) -> Tuple[RandFieldStatic, RandFieldArrays]:
     """Host-side setup: block menu, stacked edge masks, canvas size, on
     ``device`` (the card unless the caller asks for the CPU)."""
-    _require_spectral(rf_cfg.spectral)
     device = resolve_device(device)
     pairs = make_block_menu(blocks)
     n_sizes = pairs.shape[1]
@@ -127,6 +123,31 @@ def finish_block(raw, size_idx, scale, arrays: RandFieldArrays,
     return f * arrays.edge_masks[size_idx]
 
 
+def finish_block_srf(raw, size_idx, scale, arrays: RandFieldArrays,
+                     nugget_noise=None, nug=None):
+    """The gstools-SRF method's finishing (JAX ``randfield.py:155-171``):
+    NOT standardized; the nugget's white noise (when given) added before
+    the scale, then the block and the size's edge mask:
+    (raw + noise * sqrt(nug)) * scale * block_mask * edge_mask."""
+    B = raw.shape[-1]
+    bmask = block_mask(arrays.pairs[1, size_idx], arrays.pairs[0, size_idx],
+                       B)
+    if nugget_noise is not None:
+        raw = raw + nugget_noise * torch.sqrt(nug)[:, None, None]
+    f = raw * scale[:, None, None] * bmask.to(raw.dtype)
+    return f * arrays.edge_masks[size_idx]
+
+
+def srf_raw(gen, n, shape, resolution, model_name, isotropic, smoothness,
+            range_x, range_y):
+    """``n`` raw gstools-SRF fields of ``shape`` from ``gen``
+    (``ops/srf.draw_srf``'s draws, then the harmonic sum)."""
+    u, theta, z1, z2, angle = draw_srf(gen, n, isotropic, range_x.device)
+    kv = sample_wavevectors(u, theta, model_name, range_x, range_y,
+                            smoothness, angle)
+    return srf_field(kv, z1, z2, shape, resolution)
+
+
 def block_param_entries(static: RandFieldStatic):
     """A seed-listed step's draw-plan entries for ``block_params_from``:
     the size index and the variogram parameters' unit uniforms."""
@@ -160,20 +181,25 @@ def draw_block_params(gen, n, static: RandFieldStatic,
 
 def draw_block(gen, n, static: RandFieldStatic, arrays: RandFieldArrays):
     """``n`` finished proposal blocks on the (B, B) canvas (reference
-    RandField.get_rfblock, MCMC.py:742-778).  Returns (f (n, B, B),
-    size_idx, w, h); cells outside each (h, w) block are zero."""
-    _require_spectral(static.spectral)
+    RandField.get_rfblock, MCMC.py:742-778), by either generation method.
+    Returns (f (n, B, B), size_idx, w, h); cells outside each (h, w)
+    block are zero."""
     B = static.B
     size_idx, scale, nug, range_x, range_y = draw_block_params(
         gen, n, static, arrays)
-    raw = spectral_field(gen, n, (B, B), static.resolution,
-                         static.model_name, range_x, range_y,
-                         static.smoothness)
+    if static.spectral:
+        raw = spectral_field(gen, n, (B, B), static.resolution,
+                             static.model_name, range_x, range_y,
+                             static.smoothness)
+    else:
+        raw = srf_raw(gen, n, (B, B), static.resolution, static.model_name,
+                      static.isotropic, static.smoothness, range_x, range_y)
     nugget_noise = None
     if static.has_nugget:
         nugget_noise = torch.randn((n, B, B), generator=gen,
                                    device=raw.device)
-    f = finish_block(raw, size_idx, scale, arrays, nugget_noise, nug)
+    finish = finish_block if static.spectral else finish_block_srf
+    f = finish(raw, size_idx, scale, arrays, nugget_noise, nug)
     return f, size_idx, arrays.pairs[0, size_idx], arrays.pairs[1, size_idx]
 
 
@@ -186,8 +212,7 @@ class RandField:
 
     The draws take the wrapper's own ``torch.Generator``, seeded from
     ``rng_seed`` (None: fresh entropy) and made on ``device`` (the card
-    unless the caller asks for the CPU) at the first draw.  Only the
-    spectral method is ported (``_require_spectral``)."""
+    unless the caller asks for the CPU) at the first draw."""
 
     def __init__(self, range_min_x, range_max_x, range_min_y, range_max_y,
                  scale_min, scale_max, nugget_max, model_name, isotropic,
@@ -206,10 +231,8 @@ class RandField:
         self._built = None
 
     def set_generation_method(self, spectral):
-        """True: FFT spectral synthesis; False, the gstools-SRF
-        randomization method (reference MCMC.py:514-522), is not ported
-        and raises."""
-        _require_spectral(bool(spectral))
+        """True: FFT spectral synthesis; False: the gstools-SRF
+        randomization method (reference MCMC.py:514-522)."""
         self.config = dataclasses.replace(self.config,
                                           spectral=bool(spectral))
         self._built = None
@@ -299,12 +322,14 @@ class RandField:
         return tuple(t.numpy() for t in out)
 
     def get_random_field(self, X, Y, n=1):
-        """Field realizations on a (len(Y), len(X)) grid by the spectral
-        method: variogram parameters drawn as a proposal's, the field
-        standardized over the grid, scaled, plus the nugget's white noise.
-        Returns one (ny, nx) field, or (n, ny, nx) when n > 1 (the
-        reference returns only the first, MCMC.py:678-687)."""
-        _require_spectral(self.config.spectral)
+        """Field realizations on a (len(Y), len(X)) grid: variogram
+        parameters drawn as a proposal's, then by the spectral method the
+        field standardized over the grid, scaled, plus the nugget's white
+        noise; by the gstools-SRF method (JAX ``randfield.py:317-335``)
+        the field through the SRF kernel, the nugget's white noise added,
+        then scaled, not standardized.  Returns one (ny, nx) field, or
+        (n, ny, nx) when n > 1 (the reference returns only the first,
+        MCMC.py:678-687)."""
         X, Y = np.asarray(X), np.asarray(Y)
         res = float(abs(X[1] - X[0])) if len(X) > 1 else 1.0
         if len(Y) > 1:
@@ -324,13 +349,22 @@ class RandField:
                 gen, 1, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
                 cfg.range_min_x, cfg.range_max_x, cfg.range_min_y,
                 cfg.range_max_y, cfg.isotropic, device)
-            raw = spectral_field(gen, 1, shape, res, cfg.model_name, rx, ry,
-                                 cfg.smoothness)
-            f = standardize_masked(raw, torch.ones(shape, dtype=torch.bool,
-                                                   device=device))
-            noise = torch.randn((1,) + shape, generator=gen, device=device)
-            f = f * scale[:, None, None] + noise * torch.sqrt(nug)[:, None,
-                                                                   None]
+            if cfg.spectral:
+                raw = spectral_field(gen, 1, shape, res, cfg.model_name, rx,
+                                     ry, cfg.smoothness)
+                f = standardize_masked(raw, torch.ones(
+                    shape, dtype=torch.bool, device=device))
+                noise = torch.randn((1,) + shape, generator=gen,
+                                    device=device)
+                f = (f * scale[:, None, None]
+                     + noise * torch.sqrt(nug)[:, None, None])
+            else:
+                raw = srf_raw(gen, 1, shape, res, cfg.model_name,
+                              cfg.isotropic, cfg.smoothness, rx, ry)
+                noise = torch.randn((1,) + shape, generator=gen,
+                                    device=device)
+                f = ((raw + noise * torch.sqrt(nug)[:, None, None])
+                     * scale[:, None, None])
             out.append(f[0].cpu().numpy())
         return out[0] if n == 1 else np.stack(out)
 

@@ -3,7 +3,8 @@ weights, distance transforms, covariance, kriging solves, the octant
 neighbour search, the normal-score transform, and the kernels with their
 plain versions: the CRF fused window update and Philox noise, the SGS
 window extract/writeback, the two packed CG solves (mixture system, given
-Sigma) and the LUT."""
+Sigma) and the LUT; and the port's own kernels: the seed-listed farms'
+per-chain draws and the gstools-SRF proposal's harmonic sum."""
 
 from .covariance import (CovarianceSpec, covariance_norm, make_matern_table,
                          make_rho, make_rotation_matrix, make_sigma)
@@ -11,6 +12,7 @@ from .cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
                         mix_masked_cg_reference)
 from .lut_kernel import lut_interp, lut_interp_reference
 from .noise_kernel import batched_normal, batched_normal_reference
+from .srf_kernel import srf_harmonics, srf_harmonics_reference
 from .transforms import NormalScoreTransform
 from .sgs_window_kernel import (window_extract, window_extract_reference,
                                 window_writeback, window_writeback_reference)
@@ -24,4 +26,5 @@ __all__ = ["CovarianceSpec", "covariance_norm", "make_matern_table",
            "masked_cg", "masked_cg_reference", "mix_masked_cg",
            "mix_masked_cg_reference", "lut_interp", "lut_interp_reference",
            "window_extract", "window_extract_reference", "window_writeback",
-           "window_writeback_reference"]
+           "window_writeback_reference", "srf_harmonics",
+           "srf_harmonics_reference"]

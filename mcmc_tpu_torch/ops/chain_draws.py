@@ -65,7 +65,8 @@ MAX_ENTRIES = 16
 # after any change of plan layout
 SLOTS = {"size_idx": 1, "scale": 2, "nugget": 3, "range_x": 4,
          "range_y": 5, "cidx": 6, "u": 7, "nugget_noise": 8, "spectrum": 9,
-         "bsx": 10, "bsy": 11, "noise": 12, "drop_u": 13}
+         "bsx": 10, "bsy": 11, "noise": 12, "drop_u": 13, "wave_u": 14,
+         "wave_theta": 15, "z1": 16, "z2": 17, "angle": 18}
 
 
 @dataclasses.dataclass(frozen=True)

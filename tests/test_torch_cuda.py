@@ -688,3 +688,70 @@ def test_sgs_on_the_card_matches_the_cpu(cuda_device):
                **kw)
     host = sgs(p["xx"], p["yy"], p["cond_bed"], vario, device="cpu", **kw)
     np.testing.assert_allclose(card, host, atol=5e-2, rtol=0)
+
+
+# --- the gstools-SRF proposal's harmonic sum ---------------------------------
+
+SRF_ATOL = 2e-5  # a unit-variance field; the same phases, sums reordered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,n,ny,nx", [("Matern", 16, 80, 80),
+                                           ("Gaussian", 3, 37, 53),
+                                           ("Matern", 1, 128, 96)])
+def test_srf_kernel_matches_plain_version(cuda_device, model, n, ny, nx):
+    """The SRF kernel against its plain version on the same wavevectors
+    and normals (ranges 10-50 km, 500 m cells), at a farm's canvas, an
+    odd grid that leaves a partial tile, and one field as
+    ``get_random_field`` draws it; one launch a call."""
+    from mcmc_tpu_torch.ops.srf import draw_srf, sample_wavevectors
+    from mcmc_tpu_torch.ops.srf_kernel import (srf_harmonics,
+                                               srf_harmonics_reference)
+
+    gen = make_generator(7, cuda_device)
+    u, theta, z1, z2, _ = draw_srf(gen, n, True, cuda_device)
+    rx = 10e3 + 40e3 * torch.rand((n,), generator=gen, device=cuda_device)
+    kv = sample_wavevectors(u, theta, model, rx, rx, 1.3)
+    before = srf_harmonics.launches
+    got = srf_harmonics(kv, z1, z2, ny, nx, 500.0)
+    assert srf_harmonics.launches == before + 1
+    want = srf_harmonics_reference(kv, z1, z2, ny, nx, 500.0)
+    assert got.shape == (n, ny, nx)
+    assert float((got - want).abs().max()) <= SRF_ATOL
+
+
+@pytest.mark.cuda
+def test_srf_step_on_the_kernels_matches_the_plain_step(cuda_device):
+    """An SRF farm's step on the kernels (SRF, window) against the plain
+    step from the same state and generator state: at most 1 % of the MH
+    decisions flip over 10 steps (the harmonic sums in another order), the
+    SRF and window kernels launch once a step and the noise kernel
+    never."""
+    import dataclasses
+
+    from mcmc_tpu_torch.models.chain_crf import make_step
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+
+    chain = small_chain(small_problem())
+    chain._rf_cfg = dataclasses.replace(chain._rf_cfg, spectral=False)
+    static, consts = chain.build(cuda_device)
+    fused, plain = make_step(static, "auto"), make_step(static, "eager")
+    state = init_state(chain.initial_bed, consts, N)
+    gen = make_generator(5, cuda_device)
+    srf_harmonics.launches = fused_window_update.launches = 0
+    batched_normal.launches = 0
+    flips = 0
+    for _ in range(10):
+        shadow = dataclasses.replace(state, **{
+            f.name: getattr(state, f.name).clone()
+            for f in dataclasses.fields(state)})
+        gen_p = torch.Generator(device=cuda_device)
+        gen_p.set_state(gen.get_state())
+        n_srf = srf_harmonics.launches
+        _, tr_p = plain(consts, shadow, gen_p)
+        assert srf_harmonics.launches == n_srf
+        state, tr = fused(consts, state, gen)
+        flips += int((tr["step"] != tr_p["step"]).sum())
+    assert srf_harmonics.launches == fused_window_update.launches == 10
+    assert batched_normal.launches == 0
+    assert flips <= 0.01 * 10 * N, flips

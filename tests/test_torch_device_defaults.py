@@ -131,6 +131,16 @@ def _randfield(**kw):
                                            rf.get_rfblock().ravel()]))
 
 
+def _randfield_srf(**kw):
+    from mcmc_tpu_torch.models import RandField
+
+    rf = RandField(3e3, 8e3, 3e3, 8e3, 20.0, 60.0, 4.0, "Exponential", False,
+                   rng_seed=2, **kw)
+    rf.set_generation_method(False)
+    x = np.arange(24) * 500.0
+    return torch.as_tensor(rf.get_random_field(x, x))
+
+
 def _run(family):
     def run(**kw):
         make = small_chain if family == "crf" else small_sgs_chain
@@ -141,13 +151,13 @@ def _run(family):
 
 
 @pytest.mark.parametrize(
-    "call", [_sgs, _krige, _initial_beds, _randfield, _run("crf"),
-             _run("sgs")],
+    "call", [_sgs, _krige, _initial_beds, _randfield, _randfield_srf,
+             _run("crf"), _run("sgs")],
     ids=["sgs", "krige", "generate_initial_beds", "RandField",
-         "ChainCRF.run", "ChainSGS.run"])
+         "RandField-srf", "ChainCRF.run", "ChainSGS.run"])
 def test_new_entry_points_run_on_the_card_unless_asked(call, monkeypatch):
-    """The geostats entry points, the RandField wrapper's draws and the
-    single-chain runs: leaving the device out means the card, which here
+    """The geostats entry points, the RandField wrapper's draws (by both
+    generation methods) and the single-chain runs: leaving the device out means the card, which here
     raises naming device='cpu'; asking for the CPU runs there."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -107,3 +107,44 @@ def test_geostats_and_plotting_import_without_jax_or_matplotlib():
     after_package, after_all, bad = out.stdout.split("\n")[:3]
     assert (after_package, after_all) == ("0", "0")
     assert bad == "", f"imported: {bad}"
+
+
+BLOCKED = """
+import importlib.abc, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mcmc_tpu", "pandas",
+                                  "xarray", "pyproj"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, Block())
+import mcmc_tpu_torch
+print(int("mcmc_tpu_torch.data" in sys.modules))
+import mcmc_tpu_torch.ops.srf, mcmc_tpu_torch.ops.srf_kernel
+import mcmc_tpu_torch.data
+from mcmc_tpu_torch.data import interpolate, make_grid
+coords, cols, rows = make_grid(0.0, 1000.0, 0.0, 500.0, 500.0)
+print(cols, rows, float(interpolate("kneighbors", [0.0, 1.0], [0.0, 1.0],
+                                    [2.0, 4.0], [0.1], [0.1])[0]))
+try:
+    mcmc_tpu_torch.data.load_radar("nowhere", "out.csv")
+except ImportError as e:
+    print("gated:", "pandas" in str(e))
+"""
+
+
+def test_srf_and_data_import_with_jax_and_pandas_blocked():
+    """``ops/srf.py`` and the ``data`` subpackage import with JAX, the JAX
+    package, pandas, xarray and pyproj all blocked: the data layer's
+    optional dependencies load only in the functions that need them, and
+    ``import mcmc_tpu_torch`` does not import ``data``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", BLOCKED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:3] == ["0", "3 2 2.0", "gated: True"]

@@ -337,8 +337,8 @@ def test_progress_line_matches_jax(request, capsys):
 def test_randfield_wrapper_matches_jax(problem):
     """The wrapper's deterministic helpers against the JAX package's
     (block menu, edge masks, CRF weights in float32 to rtol 1e-6); its
-    draws have the JAX shapes and are reproduced by the seed; the
-    gstools-SRF method raises, naming the queue item that holds it."""
+    draws have the JAX shapes and are reproduced by the seed, by the
+    spectral and the gstools-SRF method."""
     args = (3e3, 8e3, 3e3, 8e3, 20.0, 60.0, 5.0, "Matern", True, 1.3)
     rfs = []
     for cls, kw in ((JRandField, {}), (RandField, dict(device="cpu"))):
@@ -373,6 +373,13 @@ def test_randfield_wrapper_matches_jax(problem):
                                                 x, y))
     with pytest.raises(ValueError, match="square cells"):
         t.get_random_field(x, y * 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #3 "):
-        t.set_generation_method(False)
+    # the gstools-SRF method runs, with the JAX wrapper's shapes
+    for rf in (t, j):
+        rf.set_generation_method(False)
+    for n in (1, 3):
+        f = t.get_random_field(x, y, n)
+        assert f.shape == np.shape(j.get_random_field(x, y, n))
+        assert np.isfinite(f).all()
+    block = t.get_rfblock()
+    assert block.shape in [tuple(hw) for hw in t.pairs[::-1].T]
     t.set_generation_method(True)

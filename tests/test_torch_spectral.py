@@ -161,13 +161,6 @@ def test_crf_weight_and_distance_match_jax():
     assert float(got[0].min()) == 0.0
 
 
-def test_srf_method_is_not_ported():
-    rf_cfg, blocks, weights = _configs()
-    rf_cfg = dataclasses.replace(rf_cfg, spectral=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 #3 "):
-        trf.build_randfield(rf_cfg, blocks, weights)
-
-
 @pytest.mark.parametrize("nugget_max", [0.0, 25.0])
 def test_finish_block_matches_jax_draw_block_math(nugget_max):
     """The port's finishing step (standardize over the block, scale, the
