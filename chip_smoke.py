@@ -121,11 +121,16 @@ line or more each:
    farm's initial beds for 50 steps; seconds a bed, host ms a chunk and
    the device-idle share of 20 profiled chunks;
 19. the gstools-SRF proposal method (``[srf]``, last): the SRF kernel
-   (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes) against
-   its plain version at the CRF headline (768 chains x 80 x 80, Matern),
-   with anisotropic Exponential ranges and azimuths (its cells beyond the
-   bound counted) and at one 512 x 512 field, each with its time, the
-   plain version's, the bound, registers and resident CTAs; the SRF step
+   (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes as a
+   separable product in 3xTF32 on the tensor cores) at the CRF headline
+   (768 chains x 80 x 80, Matern), with anisotropic Exponential ranges
+   and azimuths and at one 512 x 512 field, each held (i) within 2e-5
+   of the float64 field on the unrounded phase and (ii) within the
+   phase rounding's per-cell bound plus 2e-5 of its plain version
+   (``mcmc_tpu_torch/testing.py``), chain 5 bitwise alone and in the
+   batch, with its time, the plain version's, a ``torch.bmm``
+   composition's (a yardstick the port never calls), both forms of the
+   bound, registers, spills, shared bytes and resident CTAs; the SRF step
    on its kernels against the plain step (10 steps, at most 1e-3 of MH
    decisions flipping); the SRF farm's main path (ChainCRF with
    ``spectral=False`` -> MultiChainSampler(chain, 768) -> init(seeds=0)
@@ -152,7 +157,8 @@ runs, whose draw plan its times are from; the SRF kernel's over phase
 19's main path, its times from the headline case), its error against its plain version, its
 time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes the function must move at
-3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger)
+3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger;
+the SRF kernel's its 3xTF32 products at 495 TFLOP/s)
 and, where one PyTorch call computes the same function, that call's
 time.  Phases 16-19 run last and count their own launches, so the line's
 ``launches`` are those of the paths above (the SRF kernel's its own).  The last line is the JSON
@@ -243,6 +249,7 @@ FIELD_RTOL, FIELD_ATOL = 5e-5, 1e-3
 EDGE_SIZES = (50, 80)    # block sides forced onto the domain's edges
 HBM_GBS = 3350           # H100 SXM device-memory bandwidth (data sheet)
 F32_TFLOPS = 67          # H100 SXM float32 peak outside the tensor cores
+TF32_TFLOPS = 495        # H100 SXM dense TF32 tensor-core peak
 IRFFT_REL_MAX = 1e-5     # card vs a float64 transform, relative to field rms
 SLEEP_CYCLES = 50_000_000  # ~25 ms of device spin ahead of a timed loop
 # SGS kernels vs plain versions
@@ -265,13 +272,15 @@ NOISE_ODD_SHAPE = (5, 18, 7)  # 63 pairs a chain: odd
 GEO_DATA_ATOL = 1.0      # m
 GEO_BOUND_ATOL = 1e-3    # m
 GEO_CPU_ATOL = 5e-2      # m
-# the SRF kernel against its plain version: the same float32 phases and
-# sin/cos (accurate sincosf against PyTorch's CUDA sin and cos), the sums
-# of 1000 terms of a unit-variance field in another order.  For the
-# Exponential model the cells beyond the bound are counted, not refused:
-# its phases reach 1e8 rad, where the last bit of a phase is another
-# cosine.
+# the SRF kernel, a separable product that never rounds the phase a + b,
+# on a unit-variance field of 1000 modes: (i) within SRF_ATOL of the
+# float64 field on the unrounded a + b (testing.srf_separable_float64),
+# the 3xTF32 products', sincosf's and float32 sums' rounding; (ii) within
+# the phase rounding's per-cell bound (testing.srf_rounding_bound) plus
+# SRF_ATOL of the plain version, which rounds a + b as the JAX package
+# does, in every case, the Exponential's 1e8-rad phases included
 SRF_ATOL = 2e-5
+SRF_TIMED = 5            # [srf]: launches a timed loop
 
 
 def build_problem(H=GRID, W=GRID, res=RES, seed=0):
@@ -459,12 +468,13 @@ def _window_bytes(geom, acc, H, W, n_const=6):
                        + g.shape[0] * (9 + 6 + 3))
 
 
-def _bound(bytes_moved=0.0, flops=0.0):
+def _bound(bytes_moved=0.0, flops=0.0, peak_tflops=F32_TFLOPS):
     """(ms, "bytes" or "operations"): the least time the card could take
-    for work that moves ``bytes_moved`` and does ``flops`` float32
-    operations, at 3.35 TB/s and 67 TFLOP/s."""
+    for work that moves ``bytes_moved`` and does ``flops`` operations, at
+    3.35 TB/s and ``peak_tflops`` (float32 outside the tensor cores, 67
+    TFLOP/s, unless given)."""
     t_bytes = bytes_moved / (HBM_GBS * 1e9) * 1e3
-    t_ops = flops / (F32_TFLOPS * 1e12) * 1e3
+    t_ops = flops / (peak_tflops * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2647,21 +2657,60 @@ def _srf_operands(gen, n, model, isotropic, dev):
     return sample_wavevectors(u, theta, model, rx, ry, 1.3, angle), z1, z2
 
 
+def srf_separable_torch(kv, z1, z2, ny, nx, res):
+    """The separable form as PyTorch ops, the SRF kernel's yardstick,
+    which the port never calls: the products a and b, sin and cos of
+    each, then one ``torch.bmm`` (float32, "highest": no TF32)."""
+    import torch
+
+    from mcmc_tpu_torch.ops.srf_kernel import srf_norm
+
+    x = torch.arange(nx, dtype=torch.float32, device=kv.device) * float(res)
+    y = torch.arange(ny, dtype=torch.float32, device=kv.device) * float(res)
+    a = x[None, :, None] * kv[:, 0, None, :]
+    b = y[None, :, None] * kv[:, 1, None, :]
+    cb, sb = torch.cos(b), torch.sin(b)
+    w1, w2 = z1[:, None, :], z2[:, None, :]
+    left = torch.cat([w1 * cb + w2 * sb, w2 * cb - w1 * sb], dim=-1)
+    right = torch.cat([torch.cos(a), torch.sin(a)], dim=-1)
+    return torch.bmm(left, right.transpose(1, 2)) * srf_norm(kv.shape[-1])
+
+
+@contextlib.contextmanager
+def _float32_matmul_highest():
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
 def _srf_kernel_cases(card):
-    """The SRF kernel against its plain version at the farm's headline
-    (768 chains x 80 x 80, Matern), with anisotropic Exponential ranges
-    and azimuths, and at one 512 x 512 field; each case's error, time,
-    plain time and bound.  Returns the headline's kernel-table row."""
+    """The SRF kernel at the farm's headline (768 chains x 80 x 80,
+    Matern), with anisotropic Exponential ranges and azimuths, and at one
+    512 x 512 field: checks (i) against the float64 separable field and
+    (ii) against the plain version within the phase's rounding bound,
+    every cell; chain 5's field alone bitwise its field in the headline's
+    batch; each case's launch, time, plain time, the ``torch.bmm``
+    yardstick's time and both forms of the bound.  Returns the headline's
+    kernel-table row."""
     import torch
 
     from mcmc_tpu_torch.ops.srf_kernel import (srf_harmonics,
                                                srf_harmonics_reference,
                                                srf_kernel_info)
+    from mcmc_tpu_torch.testing import (srf_rounding_bound,
+                                        srf_separable_float64)
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(31)
-    info = srf_kernel_info(1000)
     row = None
     B = 80  # the headline's canvas: blocks up to 80
     for tag, model, iso, n, ny, nx in (
@@ -2673,29 +2722,63 @@ def _srf_kernel_cases(card):
         op = (kv, z1, z2, ny, nx, RES)
         got = srf_harmonics(*op)
         want = srf_harmonics_reference(*op)
-        err = (got - want).abs()
+        sep = srf_separable_float64(*op)
+        bound = srf_rounding_bound(*op)
+        err_sep = float((got.double() - sep).abs().max())
+        err = (got.double() - want.double()).abs()
         max_err = float(err.max())
+        excess = float((err - bound).max())
         beyond = int((err > SRF_ATOL).sum())
-        plain_ms, ms = _pair_times(srf_harmonics_reference, srf_harmonics,
-                                   [op])
+        with _float32_matmul_highest():
+            yard = srf_separable_torch(*op)
+            yard_err = float((yard.double() - sep).abs().max())
+            del yard
+            plain_ms, ms = _pair_times(srf_harmonics_reference,
+                                       srf_harmonics, [op] * SRF_TIMED)
+            yard_ms = _time_ops(srf_separable_torch, [op] * SRF_TIMED)
+        info = srf_kernel_info(ny, nx)
         work = float(n) * ny * nx * M
-        bound_ms, by = _bound(4.0 * (4 * n * M + n * ny * nx), 4.0 * work)
-        print(f"[srf] kernel {tag}: {model} {n} x {ny} x {nx}, M {M}: max "
-              f"|err| {max_err:.3e} against the plain version, {beyond} "
-              f"cells beyond {SRF_ATOL:g} | {ms:.4f} ms a launch "
-              f"({work / ms / 1e6:.2f} G terms/s), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({by}) -> {bound_ms / ms:.3f} of it "
-              f"| {info['registers']} registers, {info['local_bytes']} local "
-              f"bytes, {info['resident_ctas_per_sm']} resident CTAs/SM "
+        moved = 4.0 * (4 * n * M + n * ny * nx)
+        f32_ms, _ = _bound(moved, 4.0 * work)
+        bound_ms, by = _bound(moved, 3 * 2.0 * 2 * work, TF32_TFLOPS)
+        alone = ""
+        if n > 5:
+            one = srf_harmonics(kv[5:6], z1[5:6], z2[5:6], ny, nx, RES)
+            same = bool(torch.equal(one[0], got[5]))
+            alone = f" | chain 5 alone bitwise its field in the batch: {same}"
+            if not same:
+                raise RuntimeError("the SRF kernel gives chain 5 other bits "
+                                   f"alone than in a batch of {n}")
+        print(f"[srf] kernel {tag}: {model} {n} x {ny} x {nx}, M {M}: (i) max "
+              f"|kernel - separable float64| {err_sep:.3e} (bound "
+              f"{SRF_ATOL:g}) | (ii) max |kernel - plain| {max_err:.3e}, "
+              f"largest rounding bound {float(bound.max()):.3e}, largest "
+              f"excess over it {excess:.3e} (bound {SRF_ATOL:g}); {beyond} "
+              f"cells beyond {SRF_ATOL:g} of the plain version{alone} "
               f"({card})", flush=True)
-        if model != "Exponential" and beyond:
-            raise RuntimeError(f"the SRF kernel departs from its plain "
-                               f"version ({tag}: {max_err:.3e})")
+        print(f"[srf] kernel {tag}: {ms:.4f} ms a launch ({work / ms / 1e6:.2f}"
+              f" G terms/s), plain {plain_ms:.4f} ms, torch.bmm yardstick "
+              f"{yard_ms:.4f} ms (max |err| {yard_err:.3e} against the "
+              f"separable float64) | bound {bound_ms:.4f} ms ({by}: 3xTF32 "
+              f"at {TF32_TFLOPS} TFLOP/s, {n * (ny + nx) * M:.3e} sincosf "
+              f"pairs beside it) -> {bound_ms / ms:.3f} of it; direct form's "
+              f"{f32_ms:.4f} ms (4 float32 operations a term at "
+              f"{F32_TFLOPS} TFLOP/s) -> {f32_ms / ms:.3f} | tile "
+              f"{info['tile']}, {info['threads']} threads, "
+              f"{info['registers']} registers, {info['local_bytes']} local "
+              f"bytes, {info['shared_bytes']} shared bytes, "
+              f"{info['resident_ctas_per_sm']} resident CTAs/SM ({card})",
+              flush=True)
+        if err_sep > SRF_ATOL or excess > SRF_ATOL:
+            raise RuntimeError(f"the SRF kernel fails its checks ({tag}: "
+                               f"(i) {err_sep:.3e}, (ii) excess "
+                               f"{excess:.3e}, bound {SRF_ATOL:g})")
         if not torch.isfinite(got).all():
             raise RuntimeError(f"non-finite SRF fields ({tag})")
         if tag == "headline":
             row = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=by, library_ms=None)
+        del got, want, sep, bound, err
     return row
 
 

@@ -19,12 +19,19 @@ Three pieces, as for every kernel of the port:
   holds.  The chunk and the number of chains a pass depend on (ny, nx,
   M) and the device alone, so a chain's field does not depend on how
   many chains share the call;
-- ``csrc/srf_kernel.cu``: the hand-written CUDA kernel for Hopper, one
-  accurate ``sincosf`` a term, the terms in registers.  There is no
-  Pallas kernel at this site: the kernel is the port's own, like
-  ``csrc/chain_draws.cu``, because written as tensors the card would move
-  some 60 GB a step at the CRF headline (768 chains x 80 x 80 x 1000
-  terms, three 19.7 GB intermediates);
+- ``csrc/srf_kernel.cu``: the hand-written CUDA kernel for Hopper.  It
+  computes the field as a separable product: with a = fl(x kx) and b =
+  fl(y ky), cos(a + b) and sin(a + b) expand into cos a, sin a, cos b
+  and sin b, so a chain's field is one (ny x 2M) by (2M x nx) matrix
+  product in 3xTF32 on the tensor cores, with (ny + nx) M accurate
+  ``sincosf`` a chain instead of ny nx M.  It does not round a + b, as
+  the plain version does: ``testing.srf_separable_float64`` is the value
+  it approximates and ``testing.srf_rounding_bound`` what the phase's
+  rounding allows between the two, cell by cell.  There is no Pallas
+  kernel at this site: the kernel is the port's own, like
+  ``csrc/chain_draws.cu``, because written as tensors the card would
+  move some 60 GB a step at the CRF headline (768 chains x 80 x 80 x
+  1000 terms, three 19.7 GB intermediates);
 - ``srf_harmonics``: the dispatcher.  CPU tensors go to the plain
   version; CUDA tensors launch the kernel or raise.  Nothing falls back.
   ``srf_harmonics.launches`` counts kernel launches.
@@ -39,7 +46,6 @@ import torch
 
 PLAIN_BUDGET_BYTES = {"cuda": 256 << 20, "cpu": 32 << 20}
 MAX_CHAINS = 65535          # the grid's y dimension holds the chain
-SHARED_BYTES_NO_OPT_IN = 48 << 10  # a CTA's dynamic shared memory
 
 
 def srf_norm(n_modes: int) -> float:
@@ -82,7 +88,8 @@ def bind_library(lib):
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
         + [ctypes.c_void_p])
     lib.mcmc_srf_harmonics.restype = ctypes.c_int
-    lib.mcmc_srf_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.mcmc_srf_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
     lib.mcmc_srf_kernel_info.restype = ctypes.c_int
     lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
@@ -104,16 +111,17 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"SRF kernel {what} failed: {msg} ({err})")
 
 
-def srf_kernel_info(n_modes: int) -> dict:
-    """The built kernel's registers and local (spill) bytes a thread and
-    resident CTAs a multiprocessor at ``n_modes`` modes, as the CUDA
+def srf_kernel_info(ny: int, nx: int) -> dict:
+    """The launch an (ny, nx) grid takes: the kernel's registers and
+    local (spill) bytes a thread, resident CTAs a multiprocessor, dynamic
+    shared bytes a CTA, its tile side and threads a CTA, as the CUDA
     runtime reports them on the current card."""
     lib = _cuda_library()
-    out = (ctypes.c_int * 3)()
-    _raise_on(lib, lib.mcmc_srf_kernel_info(int(n_modes),
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib, lib.mcmc_srf_kernel_info(int(ny), int(nx),
                                             ctypes.addressof(out)), "query")
-    return dict(zip(("registers", "local_bytes", "resident_ctas_per_sm"),
-                    list(out)))
+    return dict(zip(("registers", "local_bytes", "resident_ctas_per_sm",
+                     "shared_bytes", "tile", "threads"), list(out)))
 
 
 def _check(kv, z1, z2, ny: int, nx: int):
@@ -133,6 +141,21 @@ def _check(kv, z1, z2, ny: int, nx: int):
         raise ValueError(f"need M, ny, nx >= 1, got {M}, {ny}, {nx}")
 
 
+def launch_srf(lib, kv, z1, z2, ny: int, nx: int, resolution: float):
+    """One launch of a built ``srf_kernel.cu`` (``lib``, typed by
+    ``bind_library``) on checked contiguous CUDA operands: the (n, ny,
+    nx) float32 fields on the current stream."""
+    n, _, M = kv.shape
+    out = torch.empty((n, ny, nx), dtype=torch.float32, device=kv.device)
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    with torch.cuda.device(kv.device):
+        err = lib.mcmc_srf_harmonics(
+            kv.data_ptr(), z1.data_ptr(), z2.data_ptr(), out.data_ptr(), n,
+            M, ny, nx, float(np.float32(resolution)), srf_norm(M), stream)
+    _raise_on(lib, err, "launch")
+    return out
+
+
 def srf_harmonics(kv, z1, z2, ny: int, nx: int, resolution: float):
     """The (n, ny, nx) float32 harmonic sums (module docstring): the
     operands checked, then the plain version for CPU tensors, the CUDA
@@ -143,26 +166,14 @@ def srf_harmonics(kv, z1, z2, ny: int, nx: int, resolution: float):
         return srf_harmonics_reference(kv, z1, z2, ny, nx, resolution)
     if kv.device.type != "cuda":
         raise ValueError(f"no SRF kernel for device {kv.device}")
-    n, _, M = kv.shape
-    if n > MAX_CHAINS:
-        raise ValueError(f"{n} chains: the SRF kernel takes at most "
-                         f"{MAX_CHAINS} a launch")
-    if 16 * M > SHARED_BYTES_NO_OPT_IN:
-        raise ValueError(f"{M} modes: the SRF kernel stages 16 bytes a mode "
-                         f"in at most {SHARED_BYTES_NO_OPT_IN} bytes of "
-                         "shared memory")
+    if kv.shape[0] > MAX_CHAINS:
+        raise ValueError(f"{kv.shape[0]} chains: the SRF kernel takes at "
+                         f"most {MAX_CHAINS} a launch")
     if ny * nx >= 2 ** 31:
         raise ValueError(f"{ny} x {nx} cells: the SRF kernel takes fewer "
                          "than 2^31")
-    kv, z1, z2 = kv.contiguous(), z1.contiguous(), z2.contiguous()
-    out = torch.empty((n, ny, nx), dtype=torch.float32, device=kv.device)
-    lib = _cuda_library()
-    stream = torch.cuda.current_stream(kv.device).cuda_stream
-    with torch.cuda.device(kv.device):
-        err = lib.mcmc_srf_harmonics(
-            kv.data_ptr(), z1.data_ptr(), z2.data_ptr(), out.data_ptr(), n,
-            M, ny, nx, float(np.float32(resolution)), srf_norm(M), stream)
-    _raise_on(lib, err, "launch")
+    out = launch_srf(_cuda_library(), kv.contiguous(), z1.contiguous(),
+                     z2.contiguous(), ny, nx, resolution)
     srf_harmonics.launches += 1
     return out
 

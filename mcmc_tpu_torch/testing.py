@@ -1,10 +1,14 @@
 """Operands that exercise the port's kernels where they are hardest to get
-right, shared by ``chip_smoke.py`` and the ``cuda``-marked tests."""
+right, and the float64 references that hold the SRF kernel, shared by
+``chip_smoke.py`` and the tests."""
 
 import numpy as np
 import torch
 
+from .ops.srf_kernel import srf_norm
 from .ops.window_kernel import window_geometry
+
+SRF_CHECK_BUDGET = 32 << 20  # float64 elements of a temporary, at most
 
 
 def edge_window_operands(consts, fields, sizes, n=None, seed=0):
@@ -63,3 +67,66 @@ def sgs_window_operands(H, W, SB, n, device, seed=1, NP=10, NS=4):
     write = torch.rand((n,), generator=gen, device=device) < 0.5
     write[:2] = torch.tensor([True, False])
     return cons, fields, sx, sy, new_w, write
+
+
+def _srf_products(kv, ny, nx, res):
+    """The SRF phase's two float32 products, each rounded as the JAX
+    package rounds them: a = fl(x_k kx_m) (n, nx, M) and b = fl(y_i
+    ky_m) (n, ny, M), with x = arange(nx) * res, y = arange(ny) * res."""
+    x = torch.arange(nx, dtype=torch.float32, device=kv.device) * float(res)
+    y = torch.arange(ny, dtype=torch.float32, device=kv.device) * float(res)
+    return (x[None, :, None] * kv[:, 0, None, :],
+            y[None, :, None] * kv[:, 1, None, :])
+
+
+def srf_separable_float64(kv, z1, z2, ny: int, nx: int, res: float):
+    """The (n, ny, nx) float64 SRF fields from the float32-rounded
+    products a and b of the phase (``_srf_products``), the sum a + b left
+    unrounded: the value the SRF kernel's separable product approximates,
+
+        norm * sum_m cos a (z1 cos b + z2 sin b) + sin a (z2 cos b - z1 sin b)
+
+    with everything after the two products in float64 and norm the
+    kernel's float32 sqrt(1 / M).  Chains go in groups that keep each
+    temporary under ``SRF_CHECK_BUDGET`` elements."""
+    n, _, M = kv.shape
+    group = max(1, SRF_CHECK_BUDGET // ((ny + nx) * M))
+    out = torch.empty((n, ny, nx), dtype=torch.float64, device=kv.device)
+    for c0 in range(0, n, group):
+        cs = slice(c0, c0 + group)
+        a, b = (t.double() for t in _srf_products(kv[cs], ny, nx, res))
+        w1, w2 = z1[cs, None, :].double(), z2[cs, None, :].double()
+        cb, sb = torch.cos(b), torch.sin(b)
+        left = torch.cat([w1 * cb + w2 * sb, w2 * cb - w1 * sb], dim=-1)
+        right = torch.cat([torch.cos(a), torch.sin(a)], dim=-1)
+        out[cs] = torch.bmm(left, right.transpose(1, 2)) * srf_norm(M)
+    return out
+
+
+def srf_rounding_bound(kv, z1, z2, ny: int, nx: int, res: float):
+    """Per cell, the (n, ny, nx) float64 bound
+
+        norm * sum_m (|z1_m| + |z2_m|) * |fl32(a + b) - (a + b)|
+
+    on |direct - separable|: the field on the float32-rounded phases
+    fl32(a + b) (the JAX order, the plain version's) against the field on
+    the unrounded a + b (``srf_separable_float64``), both with exact sin
+    and cos, since |cos u - cos v| and |sin u - sin v| are at most
+    |u - v|.  The modes are summed in chunks, chains in groups, as the
+    plain version sums them, each temporary under ``SRF_CHECK_BUDGET``
+    elements."""
+    n, _, M = kv.shape
+    cells = ny * nx
+    chunk = max(1, min(M, SRF_CHECK_BUDGET // cells))
+    group = max(1, SRF_CHECK_BUDGET // (cells * chunk))
+    out = torch.zeros((n, ny, nx), dtype=torch.float64, device=kv.device)
+    for c0 in range(0, n, group):
+        cs = slice(c0, c0 + group)
+        a, b = _srf_products(kv[cs], ny, nx, res)
+        weight = (z1[cs].double().abs() + z2[cs].double().abs())
+        for m0 in range(0, M, chunk):
+            ms = slice(m0, m0 + chunk)
+            a_m, b_m = a[:, None, :, ms], b[:, :, None, ms]
+            slip = ((b_m + a_m).double() - (b_m.double() + a_m.double()))
+            out[cs] += (slip.abs() * weight[:, None, None, ms]).sum(-1)
+    return out * srf_norm(M)

@@ -1,9 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 CRF window kernel and Philox noise (and its keyed entry), the SGS window
 extract and writeback, the two packed CG solves (mixture system, given
-Sigma), the inverse LUT, and the per-chain draw kernel of seed-listed
-farms; the single-chain ``run`` on the kernels, and ``geostats.sgs`` on the
-card against the CPU.
+Sigma), the inverse LUT, the per-chain draw kernel of seed-listed farms
+and the SRF harmonic sum; the single-chain ``run`` on the kernels, and
+``geostats.sgs`` on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -692,32 +692,69 @@ def test_sgs_on_the_card_matches_the_cpu(cuda_device):
 
 # --- the gstools-SRF proposal's harmonic sum ---------------------------------
 
-SRF_ATOL = 2e-5  # a unit-variance field; the same phases, sums reordered
+SRF_ATOL = 2e-5  # a unit-variance field of 1000 modes (chip_smoke.SRF_ATOL)
+
+
+def _srf_operands(device, n, model, isotropic, seed=7):
+    """(kv, z1, z2) of ``n`` chains: ranges 10-50 km and, anisotropic,
+    azimuths, as the farm draws them."""
+    from mcmc_tpu_torch.ops.srf import draw_srf, sample_wavevectors
+
+    gen = make_generator(seed, device)
+    u, theta, z1, z2, angle = draw_srf(gen, n, isotropic, device)
+    rx = 10e3 + 40e3 * torch.rand((n,), generator=gen, device=device)
+    ry = rx if isotropic else 10e3 + 40e3 * torch.rand(
+        (n,), generator=gen, device=device)
+    return sample_wavevectors(u, theta, model, rx, ry, 1.3, angle), z1, z2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model,n,ny,nx", [("Matern", 16, 80, 80),
-                                           ("Gaussian", 3, 37, 53),
-                                           ("Matern", 1, 128, 96)])
-def test_srf_kernel_matches_plain_version(cuda_device, model, n, ny, nx):
-    """The SRF kernel against its plain version on the same wavevectors
-    and normals (ranges 10-50 km, 500 m cells), at a farm's canvas, an
-    odd grid that leaves a partial tile, and one field as
-    ``get_random_field`` draws it; one launch a call."""
-    from mcmc_tpu_torch.ops.srf import draw_srf, sample_wavevectors
+@pytest.mark.parametrize("model,isotropic,n,ny,nx", [
+    ("Matern", True, 16, 80, 80), ("Gaussian", True, 3, 37, 53),
+    ("Matern", True, 1, 128, 96), ("Exponential", False, 16, 80, 80),
+    ("Matern", True, 1, 512, 512)])
+def test_srf_kernel_matches_plain_version(cuda_device, model, isotropic, n,
+                                          ny, nx):
+    """The SRF kernel on the same wavevectors and normals (500 m cells) at
+    a farm's canvas, an odd grid that leaves a partial tile, one field as
+    ``get_random_field`` draws it, anisotropic Exponential ranges and
+    azimuths, and a 512 x 512 field; one launch a call.  (i) Within
+    SRF_ATOL of the float64 field on the unrounded phase a + b, every
+    cell; (ii) within the phase rounding's per-cell bound plus SRF_ATOL of
+    the plain version, which rounds a + b."""
     from mcmc_tpu_torch.ops.srf_kernel import (srf_harmonics,
                                                srf_harmonics_reference)
+    from mcmc_tpu_torch.testing import (srf_rounding_bound,
+                                        srf_separable_float64)
 
-    gen = make_generator(7, cuda_device)
-    u, theta, z1, z2, _ = draw_srf(gen, n, True, cuda_device)
-    rx = 10e3 + 40e3 * torch.rand((n,), generator=gen, device=cuda_device)
-    kv = sample_wavevectors(u, theta, model, rx, rx, 1.3)
+    kv, z1, z2 = _srf_operands(cuda_device, n, model, isotropic)
+    op = (kv, z1, z2, ny, nx, 500.0)
     before = srf_harmonics.launches
-    got = srf_harmonics(kv, z1, z2, ny, nx, 500.0)
+    got = srf_harmonics(*op)
     assert srf_harmonics.launches == before + 1
-    want = srf_harmonics_reference(kv, z1, z2, ny, nx, 500.0)
-    assert got.shape == (n, ny, nx)
-    assert float((got - want).abs().max()) <= SRF_ATOL
+    assert got.shape == (n, ny, nx) and got.dtype == torch.float32
+    sep = srf_separable_float64(*op)
+    assert float((got.double() - sep).abs().max()) <= SRF_ATOL
+    err = (got - srf_harmonics_reference(*op)).double().abs()
+    excess = err - srf_rounding_bound(*op)
+    assert float(excess.max()) <= SRF_ATOL
+
+
+@pytest.mark.cuda
+def test_srf_kernel_gives_a_chain_its_bits_in_any_batch(cuda_device):
+    """Chain j's field from the kernel is bitwise the same alone and in a
+    batch of 768 (the CRF headline's chains), at the farm's canvas and at
+    a grid of several tiles."""
+    from mcmc_tpu_torch.ops.srf_kernel import srf_harmonics
+
+    kv, z1, z2 = _srf_operands(cuda_device, 768, "Matern", True, seed=9)
+    for ny, nx, chains in ((80, 80, 768), (150, 97, 40)):
+        batch = srf_harmonics(kv[:chains], z1[:chains], z2[:chains], ny, nx,
+                              500.0)
+        for j in (0, 5, chains - 1):
+            one = srf_harmonics(kv[j:j + 1], z1[j:j + 1], z2[j:j + 1], ny,
+                                nx, 500.0)
+            assert torch.equal(one[0], batch[j]), (ny, nx, j)
 
 
 @pytest.mark.cuda
