@@ -59,17 +59,17 @@ def _path_times(libs, card):
     out = {which: [] for which in libs}
     for which in ("other", "this", "this", "other"):
         lib = libs[which]
+        # each segment builds its step, which takes lut_interp then
         with mock.patch.object(
                 sgs, "lut_interp",
                 lambda x, lo, sc, t, lib=lib: lk.launch_lut(lib, x, lo, sc,
                                                             t)):
-            sampler._step = sgs.make_sgs_step(sampler.static, "auto")
-        states, _ = sampler.run_segment(states, 20)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            states, _ = sampler.run_segment(states, PATH_STEPS)
+            states, _ = sampler.run_segment(states, 20)
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                states, _ = sampler.run_segment(states, PATH_STEPS)
+                torch.cuda.synchronize()
         us = [getattr(e, "self_device_time_total",
                       getattr(e, "self_cuda_time_total", 0.0))
               for e in prof.key_averages()

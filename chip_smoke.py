@@ -79,13 +79,19 @@ line or more each:
    headline's draw plan (768 chains) and the SGS headline's (512 chains,
    6,400 normals a chain), and the keyed noise entry at 768 x 160 x 41,
    over 10 step counters (one past 2^32), bitwise; both times per launch
-   beside the bound and ``torch.rand`` / ``torch.randn`` of the same
-   shape;
+   beside an empty kernel on the draw kernel's grid, the bound by bytes
+   and by operations (the SASS instructions one normal call issues, from
+   a probe kernel built from the source, at the card's issue rate), and
+   ``torch.rand`` / ``torch.randn`` of the same shape;
 13. chain independence (``[independence]``): at each headline a farm
    seeded with a list and a 1-chain farm seeded with its first seed, 50
-   steps on the kernels: chain 0's draws bitwise equal, its loss traces
-   printed side by side with the first step where they differ, and
-   whether cuFFT gives chain 0 the same bits in a batch as alone;
+   CRF / 399 SGS steps on the kernels: chain 0's draws, loss traces and
+   final state bitwise equal; where they are not, the SGS farms run again
+   with each step taken apart (``testing.sgs_step_stages``) to name the
+   first op whose chain-0 result depends on the batch; whether cuFFT
+   gives chain 0 the same bits in a batch as alone;
+   and ``ops/physics.masked_sq_sum`` on random fields, chain 0 in a
+   batch against alone (beside a one-pass ``sum``, which is not);
 14. seeding and launches (``[seeds]``): an int-seeded and a list-seeded
    farm of each family in turn (int, list, list, int): chain-it/s (no
    claim) and device ops a step, the list-seeded step making no more
@@ -98,8 +104,8 @@ line or more each:
 16. the single-chain run API (``[run]``): ``ChainCRF.run(1000)`` (beds
    saved) and ``ChainSGS.run(400)`` at the headline's width, one chain
    seeded [1000], each kernel of the path once a step: traces bitwise the
-   1-chain farm seeded [1000], draws bitwise chain 0's in the headline
-   farm seeded [1000, ...] (that chain's traces compared and printed),
+   1-chain farm seeded [1000], draws and traces bitwise chain 0's in the
+   headline farm seeded [1000, ...],
    bitwise the same with ``progress_bar`` every 100 iterations and (CRF)
    with a ``RandField`` configured like the chain, a second run
    continuing the stream, (CRF) the last saved bed the final state's,
@@ -201,7 +207,11 @@ ENTRY_SGS_ITERS = (400, 600)  # phase 11a: run, then resume to
 ENTRY_SEGMENT = 200
 ENTRY_CRF_ITERS = 300
 DRAW_STEPS = 10          # [draws]: recorded steps of the per-chain draws
-SEED_STEPS = 50          # [independence]: steps of each pair of farms
+# [independence]: steps of each pair of farms (SGS: the 399 of [run]'s
+# ChainSGS.run(400)), and the loss values printed of each
+SEED_STEPS = {"crf": 50, "sgs": 399}
+SEED_PRINTED = 50
+SUM_TRIALS = 20          # [independence]: random fields a shape
 SEED_RATE_STEPS = {"crf": 300, "sgs": 200}  # [seeds]: timed steps a run
 ENTRY_LIST_ITERS = (400, 600)  # [entry-list]: run, then resume to
 RUN_ITERS = {"crf": 1000, "sgs": 400}  # [run]: each single-chain run
@@ -249,6 +259,8 @@ FIELD_RTOL, FIELD_ATOL = 5e-5, 1e-3
 EDGE_SIZES = (50, 80)    # block sides forced onto the domain's edges
 HBM_GBS = 3350           # H100 SXM device-memory bandwidth (data sheet)
 F32_TFLOPS = 67          # H100 SXM float32 peak outside the tensor cores
+SM_COUNT = 132           # H100 SXM streaming multiprocessors
+SM_IPC = 4               # warp instructions an SM issues a clock
 TF32_TFLOPS = 495        # H100 SXM dense TF32 tensor-core peak
 IRFFT_REL_MAX = 1e-5     # card vs a float64 transform, relative to field rms
 SLEEP_CYCLES = 50_000_000  # ~25 ms of device spin ahead of a timed loop
@@ -394,9 +406,10 @@ def phase_build():
                  or "not measured (no cuobjdump)"), flush=True)
 
 
-def _sass_counts(lib_path):
-    """{mangled kernel name: instructions in its SASS} of a built library,
-    from the toolkit's cuobjdump; {} where the toolkit has none."""
+def _sass_listing(lib_path):
+    """{mangled kernel name: its SASS instruction lines} of a built
+    library, from the toolkit's cuobjdump; {} where the toolkit has
+    none."""
     from mcmc_tpu_torch.ops.cuda_build import find_nvcc
 
     tool = Path(find_nvcc()).with_name("cuobjdump")
@@ -405,15 +418,168 @@ def _sass_counts(lib_path):
     out = subprocess.run([str(tool), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout
-    counts, name = {}, None
+    listing, name = {}, None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
+            listing[name] = []
         elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            counts[name] += 1
-    return counts
+            listing[name].append(line)
+    return listing
+
+
+def _sass_counts(lib_path):
+    """{mangled kernel name: instructions in its SASS} of a built library;
+    {} where the toolkit has no cuobjdump."""
+    return {k: len(v) for k, v in _sass_listing(lib_path).items()}
+
+
+# A thread's work for PROBE_CALLS normal calls of chain_draws.cu's kernel
+# under one key schedule, and for one: each call a Philox call, both
+# Box-Muller pairs and one 16-byte store.  Appended to the source so that
+# it uses the kernel's own device functions (external linkage, so that
+# nvcc keeps both).  Never launched: the difference of their SASS counts
+# is the instructions a call needs past the prologue (key load, key
+# schedule, step load) that a chain's calls share, for the kernel's bound
+# by operations (``draw_call_instructions``).
+PROBE_CALLS = 4
+DRAW_PROBE = r"""
+template <int kN>
+__device__ __forceinline__ void probe_calls(const uint2* __restrict__ keys,
+                                            const long long* __restrict__ step,
+                                            float4* __restrict__ out) {
+  const Keys k = key_schedule(keys[blockIdx.x]);
+  const unsigned long long s = (unsigned long long)step[0];
+  uint4 w[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c)
+    w[c] = philox4x32_10(make_uint4((uint32_t)s, 12u,
+                                    threadIdx.x + c * blockDim.x,
+                                    (uint32_t)(s >> 32)), k);
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    float c0, s0, c1, s1;
+    box_muller(w[c].x, w[c].y, c0, s0);
+    box_muller(w[c].z, w[c].w, c1, s1);
+    out[(blockIdx.x * kN + c) * blockDim.x + threadIdx.x] =
+        make_float4(c0, s0, c1, s1);
+  }
+}
+extern "C" __global__ void probe_normal_calls_1(const uint2* keys,
+                                                const long long* step,
+                                                float4* out) {
+  probe_calls<1>(keys, step, out);
+}
+extern "C" __global__ void probe_normal_calls_n(const uint2* keys,
+                                                const long long* step,
+                                                float4* out) {
+  probe_calls<PROBE_CALLS>(keys, step, out);
+}
+"""
+
+
+def build_draw_source(tag, text):
+    """Build ``text``, a version of ``chain_draws.cu``, with the port's
+    flags into the build directory as ``libchain_draws_<tag>.so``;
+    returns (library typed by ``bind_library``, path, ptxas lines)."""
+    import ctypes
+
+    from mcmc_tpu_torch.ops.chain_draws import bind_library
+    from mcmc_tpu_torch.ops.cuda_build import (BUILD_DIR, NVCC_FLAGS,
+                                               _ptxas_lines, find_nvcc)
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = BUILD_DIR / f"chain_draws_{tag}.cu"
+    cu.write_text(text)
+    out = BUILD_DIR / f"libchain_draws_{tag}.so"
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                           str(cu)], capture_output=True, text=True,
+                          check=False)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on chain_draws ({tag}):\n"
+                           + proc.stdout + proc.stderr)
+    return (bind_library(ctypes.CDLL(str(out))), out,
+            _ptxas_lines(proc.stdout + proc.stderr))
+
+
+def _hot_path(lines):
+    """(instructions a call issues, all to the first EXIT) of a
+    straight-line kernel's SASS ``lines``: those to the first EXIT less
+    each region that a conditional forward branch skips where the region
+    touches local memory or calls out (the math library's slow paths:
+    sincosf's Payne-Hanek reduction, which t = 2 pi u2 < 2 pi never takes,
+    and sqrtf's special cases)."""
+    rows = []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", line)
+        if m:
+            rows.append((int(m.group(1), 16), m.group(2)))
+    end = next((i for i, (_, text) in enumerate(rows) if "EXIT" in text),
+               len(rows) - 1) + 1
+    rows = rows[:end]
+    skipped = set()
+    for addr, text in rows:
+        m = re.match(r"@!?U?P\w+\s+BRA\s+(?:`\()?0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) <= addr:
+            continue
+        region = [i for i, (a, _) in enumerate(rows)
+                  if addr < a < int(m.group(1), 16)]
+        if any(re.search(r"\b(LDL|STL|CALL)", rows[i][1]) for i in region):
+            skipped.update(region)
+    return end - len(skipped), end
+
+
+def draw_call_instructions():
+    """SASS instructions a normal call of the draw kernel needs past the
+    prologue its chain's calls share: the DRAW_PROBE kernels built from
+    this checkout's source, each counted to its first EXIT without the
+    slow paths it never takes (``_hot_path``), (PROBE_CALLS calls less
+    one call) / (PROBE_CALLS - 1).  Returns (that, the one-call probe's
+    count, prologue included).  Raises where the toolkit has no
+    cuobjdump: the bound by operations is not guessed."""
+    from mcmc_tpu_torch.ops.cuda_build import CSRC
+
+    _, path, _ = build_draw_source(
+        "probe", (CSRC / "chain_draws.cu").read_text()
+        + DRAW_PROBE.replace("PROBE_CALLS", str(PROBE_CALLS)))
+    listing = _sass_listing(path)
+    hot = {}
+    for tag in ("1", "n"):
+        lines = next((v for k, v in listing.items()
+                      if f"probe_normal_calls_{tag}" in k), None)
+        if lines is None:
+            raise RuntimeError("no SASS of the draw probe (cuobjdump "
+                               "missing?): the draw kernel's bound by "
+                               "operations cannot be counted")
+        hot[tag] = _hot_path(lines)[0]
+    return (hot["n"] - hot["1"]) / (PROBE_CALLS - 1), hot["1"]
+
+
+def max_sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def draw_bound(n_chains, plan, per_call, clock_hz):
+    """(ms, "bytes" or "operations", bytes ms, operations ms) of one
+    draw-kernel launch: its bytes (``_plan_bytes``) at 3.35 TB/s, and its
+    normal entries' Philox calls at ``per_call`` SASS instructions each
+    (``draw_call_instructions``; the few index and uniform calls left
+    out) at the card's issue rate: 4 warp instructions a clock on each of
+    132 SMs at ``clock_hz``."""
+    normal_calls = sum(-(-e.count // 4) for e in plan.entries
+                       if e.kind == "normal")
+    bytes_ms = _plan_bytes(n_chains, plan) / (HBM_GBS * 1e9) * 1e3
+    ops_ms = (n_chains * normal_calls * per_call / 32
+              / (SM_IPC * SM_COUNT * clock_hz) * 1e3)
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", bytes_ms, ops_ms
+    return ops_ms, "operations", bytes_ms, ops_ms
 
 
 def _block_sums(values, mask, geom):
@@ -1729,20 +1895,32 @@ def phase_draws_vs_plain(crf_chain, sgs_chain, card):
     """The per-chain draw kernel against its plain version on each
     headline's draw plan (768 CRF chains, 512 SGS chains), and the keyed
     noise entry at 768 x 160 x 41, over DRAW_STEPS steps' counters:
-    every value bitwise; both times per launch beside the bound and one
-    PyTorch call of the same shape."""
+    every value bitwise; both times per launch beside the launch floor
+    (an empty kernel on the kernel's grid), the bound by bytes and by
+    operations (``draw_bound``), and ``torch.rand`` and ``torch.randn``
+    of the plan's values (uniforms, and the normals most of them are)."""
     import torch
 
     from mcmc_tpu_torch.models import chain_crf as crf
     from mcmc_tpu_torch.models import chain_sgs as sgs
     from mcmc_tpu_torch.ops.chain_draws import (SLOTS, cached_plan,
                                                 chain_draws,
-                                                chain_draws_reference)
+                                                chain_draws_info,
+                                                chain_draws_reference,
+                                                empty_draws_launch)
     from mcmc_tpu_torch.ops.noise_kernel import (
         batched_normal_keyed, batched_normal_keyed_reference)
     from mcmc_tpu_torch.utils.rng import PerChainStreams
 
     dev = torch.device(DEVICE)
+    per_call, one_call = draw_call_instructions()
+    clock_hz = max_sm_clock_hz()
+    print(f"[draws] a normal call of the draw kernel: {per_call:g} SASS "
+          f"instructions on its path past the shared prologue ({PROBE_CALLS}"
+          f" calls under one key schedule less one, over "
+          f"{PROBE_CALLS - 1}; one call with its prologue {one_call}; "
+          f"cuobjdump) | max SM clock {clock_hz / 1e6:.0f} MHz ({card})",
+          flush=True)
     steps = [torch.tensor([t], dtype=torch.int64, device=dev)
              for t in range(DRAW_STEPS - 1)] + [
         torch.tensor([(1 << 32) + 5], dtype=torch.int64, device=dev)]
@@ -1768,24 +1946,35 @@ def phase_draws_vs_plain(crf_chain, sgs_chain, card):
         plain_ms, ms = _pair_times(
             lambda k, t: chain_draws_reference(k, t, plan),
             lambda k, t: chain_draws(k, t, plan), recorded)
+        floor_ms = _time_ops(lambda: empty_draws_launch(n, plan.calls),
+                             [()] * DRAW_STEPS)
         lib_gen = torch.Generator(device=dev)
         lib_gen.manual_seed(23)
         library_ms = _time_ops(
             lambda: torch.rand((n, plan.floats), generator=lib_gen,
                                device=dev), [()] * DRAW_STEPS)
-        moved = _plan_bytes(n, plan)
-        bound_ms, bound_by = _bound(moved)
+        normals = sum(e.count for e in plan.entries if e.kind == "normal")
+        randn_ms = (_time_ops(
+            lambda: torch.randn((n, normals), generator=lib_gen, device=dev),
+            [()] * DRAW_STEPS) if normals else None)
+        bound_ms, bound_by, bytes_ms, ops_ms = draw_bound(
+            n, plan, per_call, clock_hz)
+        info = chain_draws_info(n, plan.calls)
+        randn = ("" if randn_ms is None else
+                 f", torch.randn of ({n}, {normals}) {randn_ms:.4f} ms")
         print(f"[draws] {family} plan ({', '.join(f'{e.name} {e.kind} x'
                                                f'{e.count}'
                                                for e in plan.entries)}): "
               f"{n} chains, {plan.calls} Philox calls a chain, "
               f"{DRAW_STEPS} steps: {n_diff} of {n_values} values not "
               f"bitwise equal to the plain version (bound 0) | per launch: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.rand of "
-              f"({n}, {plan.floats}) {library_ms:.4f} ms | bound "
-              f"{bound_ms:.3e} ms by {bound_by} ({moved:,.0f} bytes) = "
-              f"{bound_ms / ms:.3f} of the kernel's time ({card}; CUDA "
-              f"events)", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, an empty "
+              f"kernel on its grid {floor_ms:.4f} ms, torch.rand of "
+              f"({n}, {plan.floats}) {library_ms:.4f} ms{randn} | bound "
+              f"{bound_ms:.3e} ms by {bound_by} (bytes {bytes_ms:.3e} ms, "
+              f"{_plan_bytes(n, plan):,.0f} B; operations {ops_ms:.3e} "
+              f"ms) = {bound_ms / ms:.3f} of the kernel's time | launch "
+              f"{info} ({card}; CUDA events)", flush=True)
         if n_diff:
             raise RuntimeError(f"the {family} draw kernel disagrees with "
                                "its plain version")
@@ -1828,57 +2017,132 @@ def phase_draws_vs_plain(crf_chain, sgs_chain, card):
 def phase_independence(crf_chain, sgs_chain, card):
     """At each headline, a farm seeded with a list and a 1-chain farm
     seeded with its first seed, SEED_STEPS steps each on the kernels:
-    chain 0's draws must be bitwise equal in the two; its loss traces are
-    printed side by side with the first step where they differ, and
-    cuFFT's C2R transform of chain 0's noise in a batch of N against a
-    batch of 1 says whether the FFT is batch-invariant."""
+    chain 0's draws, its loss traces and its final state must be bitwise
+    equal in the two.  Where they are not, the SGS farms are run again
+    with each step taken apart (``testing.sgs_step_stages``) until one
+    stage's chain-0 result differs: the first step and op that depend on
+    the batch are printed.  cuFFT's C2R transform of chain 0's noise in a
+    batch of N against a batch of 1 says whether the FFT is
+    batch-invariant."""
     import torch
 
+    from mcmc_tpu_torch.testing import (first_batch_dependence,
+                                        sgs_step_stages)
     from mcmc_tpu_torch.utils.rng import PerChainStreams
 
+    failed = []
     for family, chain, n in (("crf", crf_chain, N_CHAINS),
                              ("sgs", sgs_chain, SGS_CHAINS)):
         static, consts, draw, update, init = _family(chain)
         seeds = _seed_list(n)
-        farms = {m: [PerChainStreams.from_seeds(seeds[:m], DEVICE), init(m),
-                     []] for m in (n, 1)}
-        n_diff = n_values = 0
-        noise0 = {}
-        for t in range(SEED_STEPS):
-            drawn = {m: draw(f[0], static, consts, m)
-                     for m, f in farms.items()}
-            a, b = _draw_fields(drawn[n]), _draw_fields(drawn[1])
-            for name in a:
-                n_diff += int((a[name][0] != b[name][0]).sum())
-                n_values += b[name][0].numel()
-            if t == 0:
-                noise0 = {m: d.noise for m, d in drawn.items()}
-            for m, f in farms.items():
-                f[1], tr = update(consts, f[1], drawn[m])
-                f[2].append(tr["loss"][0])
-                f[0].advance()
-        loss = {m: torch.stack(f[2]).cpu().numpy() for m, f in farms.items()}
+        steps = SEED_STEPS[family]
+
+        def run(probe):
+            """(chain 0's draws that differ, draw values, step-1 noise by
+            farm, loss traces by farm, final states equal, the (step,
+            stage) of the first batch dependence when ``probe``)."""
+            farms = {m: [PerChainStreams.from_seeds(seeds[:m], DEVICE),
+                         init(m), []] for m in (n, 1)}
+            n_diff = n_values = 0
+            noise0, batch_op = {}, None
+            for t in range(steps):
+                drawn = {m: draw(f[0], static, consts, m)
+                         for m, f in farms.items()}
+                a, b = _draw_fields(drawn[n]), _draw_fields(drawn[1])
+                for name in a:
+                    n_diff += int((a[name][0] != b[name][0]).sum())
+                    n_values += b[name][0].numel()
+                if t == 0:
+                    noise0 = {m: d.noise for m, d in drawn.items()}
+                if probe and batch_op is None:
+                    stage = first_batch_dependence(*(
+                        sgs_step_stages(static, consts, farms[m][1],
+                                        drawn[m]) for m in (n, 1)))
+                    if stage is not None:
+                        batch_op = (t + 1, stage)
+                for m, f in farms.items():
+                    f[1], tr = update(consts, f[1], drawn[m])
+                    f[2].append(tr["loss"][0])
+                    f[0].advance()
+                if probe and batch_op is not None:
+                    break
+            loss = {m: torch.stack(f[2]).cpu().numpy()
+                    for m, f in farms.items()}
+            state_same = torch.equal(farms[n][1].fields[:1],
+                                     farms[1][1].fields[:1])
+            return n_diff, n_values, noise0, loss, state_same, batch_op
+
+        n_diff, n_values, noise0, loss, state_same, _ = run(False)
         same = loss[n] == loss[1]
         first = int(np.argmin(same)) if not same.all() else None
+        batch_op = None
+        if family == "sgs" and (first is not None or not state_same):
+            batch_op = run(True)[5]
         fft_same = _fft_batch_invariant(family, static, consts, noise0, n)
         rel = float(np.max(np.abs(loss[n] - loss[1]) / np.abs(loss[1])))
-        traces = ("equal at every step" if first is None else
+        traces = ("bitwise equal at every step" if first is None else
                   f"first differ after step {first + 1} (max rel "
                   f"{rel:.3e})")
+        stages = ("" if family != "sgs" or (first is None and state_same)
+                  else " | first op whose chain-0 result depends on the "
+                  "batch: " + ("none found" if batch_op is None else
+                               f"{batch_op[1]!r} at step {batch_op[0]}"))
         print(f"[independence] {family}: farm of {n} seeded "
               f"{seeds[0]}..{seeds[-1]} against a farm of 1 seeded "
-              f"[{seeds[0]}], {SEED_STEPS} steps on the kernels: chain 0's "
+              f"[{seeds[0]}], {steps} steps on the kernels: chain 0's "
               f"draws {n_diff} of {n_values} values not bitwise equal "
-              f"(bound 0) | chain 0's loss traces {traces} | cuFFT C2R of "
-              f"chain 0's step-1 noise in a batch of {n} vs 1 bitwise "
-              f"equal: {fft_same} ({card})", flush=True)
+              f"(bound 0) | chain 0's loss traces {traces}, final state "
+              f"bitwise equal: {state_same} (bound: bitwise){stages} | "
+              f"cuFFT C2R of chain 0's step-1 noise in a batch of {n} vs "
+              f"1 bitwise equal: {fft_same} ({card})", flush=True)
         for m in (n, 1):
             print(f"[independence] {family} chain 0 loss, farm of {m}: "
-                  + json.dumps([float(v) for v in loss[m]]), flush=True)
+                  + json.dumps([float(v) for v in loss[m][:SEED_PRINTED]]),
+                  flush=True)
         if n_diff:
-            raise RuntimeError(f"the {family} farm's chain 0 draws depend "
-                               "on the other chains")
-        del farms
+            failed.append(f"the {family} farm's chain 0 draws depend on "
+                          "the other chains")
+        if first is not None or not state_same:
+            failed.append(f"the {family} farm's chain 0 traces depend on "
+                          "the other chains")
+    sums = _sums_batch_invariant()
+    print(f"[independence] masked square sums (ops/physics.masked_sq_sum) "
+          f"whose chain 0 differs in a batch from alone, of "
+          f"{SUM_TRIALS} random fields a shape: "
+          + ", ".join(f"{n} x {h} x {w}: {new} (one-pass sum: {old})"
+                      for (n, h, w), (new, old) in sums.items())
+          + f" (bound 0; {card})", flush=True)
+    if any(new for new, _ in sums.values()):
+        failed.append("masked_sq_sum depends on the batch")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+
+
+def _sums_batch_invariant():
+    """{(n, h, w): (trials whose chain 0 ``masked_sq_sum`` differs in a
+    batch of n from alone, the same for a one-pass ``sum`` over both
+    axes)} over SUM_TRIALS random fields and masks at the SGS window, the
+    full grid and an odd window."""
+    import torch
+
+    from mcmc_tpu_torch.ops.physics import masked_sq_sum
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    out = {}
+    for n, h, w in ((SGS_CHAINS, 36, 36), (64, GRID, GRID),
+                    (SGS_CHAINS, 45, 67)):
+        new = old = 0
+        for _ in range(SUM_TRIALS):
+            res = torch.randn((n, h, w), generator=gen, device=DEVICE)
+            mask = torch.rand((n, h, w), generator=gen, device=DEVICE) < 0.4
+            new += not torch.equal(masked_sq_sum(res, mask)[:1],
+                                   masked_sq_sum(res[:1], mask[:1]))
+            sq = torch.where(mask, res * res, 0.0)
+            old += not torch.equal(sq.sum(dim=(-2, -1))[:1],
+                                   sq[:1].sum(dim=(-2, -1)))
+        out[(n, h, w)] = (new, old)
+    return out
 
 
 def _fft_batch_invariant(family, static, consts, noise, n):
@@ -2326,9 +2590,9 @@ def phase_run(p, card):
     """[run]: ``ChainCRF.run`` / ``ChainSGS.run`` at the headline's width,
     one chain seeded [s] (each run's launches counted from 0 just before
     it and read just after: every kernel of the path once a step).
-    Checks: the traces equal the 1-chain farm seeded [s] bit for bit, the
-    draws chain 0's in the headline farm seeded [s, s + 1, ...] (whether
-    that farm's chain 0 traces are bitwise too is printed, not gated);
+    Checks: the traces equal the 1-chain farm seeded [s] bit for bit, and
+    the draws and the traces chain 0's in the headline farm seeded [s, s
+    + 1, ...] (the SGS farm's, since its masked sums are batch-invariant);
     ``progress_bar`` with ``info_per_iter`` changes no bit; (CRF) a
     ``RandField`` configured like the chain changes no bit; a second run
     continues the stream and differs; (CRF) the last saved bed is the
@@ -2366,7 +2630,8 @@ def phase_run(p, card):
         big = MultiChainSampler(chain, n_farm, device=DEVICE)
         _, trn = big.run(big.init(seeds=_seed_list(n_farm)), n_iter,
                          segment_size=steps, progress=False)
-        big_traces = _run_matches_farm(out, trn, 0)
+        checks[f"traces = chain 0 of {n_farm}"] = _run_matches_farm(out,
+                                                                 trn, 0)
         del big, trn
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             seen = chain.run(n_iter, seed=seed, save_beds=is_crf,
@@ -2395,9 +2660,8 @@ def phase_run(p, card):
               f"({elapsed:.2f} s) | loss {loss[0]:.6e} -> {loss[-1]:.6e}, "
               f"acc {acc:.3f} | launches {launches} in {steps} steps | "
               f"chain 0's draws in the farm of {n_farm}: {n_diff} of "
-              f"{n_values} values differ | chain 0's traces in that farm "
-              f"bitwise equal (reported, not gated): {big_traces} | "
-              f"progress: {progress[-1] if progress else None!r} | checks "
+              f"{n_values} values differ | progress: "
+              f"{progress[-1] if progress else None!r} | checks "
               f"{checks} ({card})", flush=True)
         if any(n != steps for n in launches.values()):
             raise RuntimeError(f"{family} single-chain launches {launches} "

@@ -23,7 +23,12 @@ Main path (``ChainSGS`` the same way, with its own setters)::
 
 or, with checkpoint/resume, ``drivers.large_scale_chain_farm`` /
 ``small_scale_chain_farm``, or ``python -m mcmc_tpu_torch cfg.json``.
-One chain: ``chain.run(n_iter, ...)`` (a one-chain farm).  Initial beds
+One chain: ``chain.run(n_iter, ...)`` (a one-chain farm).  The
+reference's functional forms keep its arguments in its order, with the
+port's random source (a ``torch.Generator`` or per-chain streams) as the
+keyword-only ``rng`` in place of its keys: ``parallel.init_states`` and
+``parallel.run_chains`` (both families), ``models.init_state`` /
+``run_chain`` and ``models.run_sgs_chain`` (one chain).  Initial beds
 (the T2 workflow): ``geostats.fit_variogram`` on the radar picks, then
 ``geostats.generate_initial_beds`` (SGS on the card), handed to
 ``sampler.init(initial_beds=...)``.  The data layer (gridding radar
@@ -31,7 +36,9 @@ picks, regridding, masks, radar QC) is ``mcmc_tpu_torch.data``, host
 code that the package does not import.
 """
 
-from . import geostats
+__version__ = "0.2.0"  # pyproject.toml's
+
+from . import geostats, io, models, ops, parallel, utils
 from .models.chain_crf import ChainCRF
 from .models.chain_sgs import ChainSGS
 from .ops.transforms import NormalScoreTransform
@@ -39,6 +46,7 @@ from .parallel.sampler import MultiChainSampler
 from .utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                            SGSParams, VariogramConfig, WeightConfig)
 
-__all__ = ["geostats", "ChainCRF", "ChainSGS", "MultiChainSampler",
+__all__ = ["ops", "models", "geostats", "parallel", "io", "utils",
+           "__version__", "ChainCRF", "ChainSGS", "MultiChainSampler",
            "NormalScoreTransform", "BlockMenuConfig", "LossConfig",
            "RandFieldConfig", "SGSParams", "VariogramConfig", "WeightConfig"]

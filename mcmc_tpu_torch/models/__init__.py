@@ -5,7 +5,8 @@ SGS chain."""
 from .chain_crf import (ChainCRF, ChainState, CRFConsts, CRFStatic, Draws,
                         init_state, make_kernel, make_step, run_chain)
 from .chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
-                        make_sgs_kernel, make_sgs_step, sgs_init_state)
+                        make_sgs_kernel, make_sgs_step, run_sgs_chain,
+                        sgs_init_state)
 from .randfield import (RandField, RandFieldArrays, RandFieldStatic,
                         build_randfield, draw_block, make_block_menu)
 
@@ -14,4 +15,4 @@ __all__ = ["ChainCRF", "ChainState", "CRFConsts", "CRFStatic", "Draws",
            "RandField", "RandFieldArrays", "RandFieldStatic",
            "build_randfield", "draw_block", "make_block_menu", "ChainSGS",
            "SGSConsts", "SGSState", "SGSStatic", "make_sgs_kernel",
-           "make_sgs_step", "sgs_init_state"]
+           "make_sgs_step", "run_sgs_chain", "sgs_init_state"]

@@ -182,13 +182,21 @@ class Draws:
     angle: Optional[torch.Tensor] = None       # (N,) azimuth, anisotropic
 
 
-def init_state(beds, consts: CRFConsts, n_chains: Optional[int] = None
+def init_state(bed, consts: CRFConsts, n_chains: Optional[int] = None
                ) -> ChainState:
     """Fresh chain states: full-grid residual and loss (reference
-    MCMC.py:1184-1195).  ``beds`` is (N, H, W), or one (H, W) bed shared by
-    ``n_chains`` chains (computed once, then copied per chain)."""
+    MCMC.py:1184-1195).  ``bed`` is (N, H, W), or one (H, W) bed shared by
+    ``n_chains`` chains (computed once, then copied per chain).  The
+    reference's ``init_state(bed, key, consts)`` has a key in second
+    place; the port's states carry none (their random source is the
+    runner's ``rng``), so a second argument that is not a ``CRFConsts``
+    raises a TypeError naming this form."""
+    if not isinstance(consts, CRFConsts):
+        raise TypeError("init_state(bed, consts, n_chains=None): consts "
+                        "must be a CRFConsts (the port's chain state "
+                        f"carries no key); got {type(consts).__name__}")
     device = consts.stacked.device
-    beds = torch.as_tensor(beds, dtype=torch.float32, device=device)
+    beds = torch.as_tensor(bed, dtype=torch.float32, device=device)
     shared = beds.dim() == 2
     bed = beds[None] if shared else beds
     mc_res = mass_conservation_residual(
@@ -446,18 +454,31 @@ def single_chain_farm(chain, seed, device):
     return sampler, state
 
 
-def run_chain(sampler, state, n_iter: int, save_beds: bool = False):
-    """``n_iter - 1`` MH steps of a one-chain ``sampler`` (iteration 0
-    records the initial state, as in the reference loop ``for i in
-    range(1, n_iter)``, MCMC.py:1247).  Returns (final_state, traces):
-    host numpy traces with leading dim ``n_iter`` and no chain axis,
-    index 0 holding the initial values; ``save_beds`` adds
-    ``traces["bed"]``, (n_iter, H, W) full beds."""
-    head = sampler.initial_row(state, save_beds)
-    state, tail = sampler.run_segment(state, int(n_iter) - 1, save_beds)
-    traces = {k: np.concatenate([head[k], tail[k].cpu().numpy()])[:, 0]
-              for k in head}
-    return state, traces
+RUN_CHAIN_FORM = ("run_chain(static, consts, state, n_iter, save_beds=False, "
+                  "*, rng)")
+
+
+def run_chain(static: CRFStatic, consts: CRFConsts, state: ChainState,
+              n_iter: int, save_beds: bool = False, *, rng=None):
+    """``n_iter - 1`` MH steps of one chain (iteration 0 records the
+    initial state, as in the reference loop ``for i in range(1, n_iter)``,
+    MCMC.py:1247), the reference's ``run_chain``
+    (``mcmc_tpu/models/chain_crf.py:678``) with its arguments in its
+    order.  ``state`` holds one chain (a leading axis of 1, as
+    ``init_state(bed, consts)`` gives); ``rng`` (keyword-only, required)
+    is a ``torch.Generator`` or per-chain streams, in place of the key the
+    reference's state carries.  The kernels run for CUDA tensors, their
+    plain versions for CPU ones.  Returns
+    (final_state, traces): device traces with leading dim ``n_iter`` and
+    no chain axis, index 0 holding the initial values; ``save_beds`` adds
+    ``traces["bed"]``, (n_iter, H, W) beds."""
+    from ..parallel.sampler import run_one_chain
+
+    if not isinstance(static, CRFStatic):
+        raise TypeError(f"{RUN_CHAIN_FORM}: static must be a CRFStatic, "
+                        f"got {type(static).__name__}")
+    return run_one_chain(static, consts, state, n_iter, save_beds, rng,
+                         "auto", RUN_CHAIN_FORM)
 
 
 def _run_segmented(run_fn, state, n_iter: int, info_per_iter: int,
@@ -512,19 +533,29 @@ def run_single_chain(chain, n_iter, only_save_last_bed, info_per_iter,
                      plot, progress_bar, save_beds, seed, device):
     """The single-chain ``run`` of either family (``ChainCRF.run``,
     ``ChainSGS.run``): a one-chain farm (``single_chain_farm``) through
-    ``run_chain``, segmented by the observers, returned as a dict of the
+    the runners' one-chain loop (``parallel/sampler.run_one_chain``),
+    segmented by the observers, returned as a dict of the
     reference's names (MCMC.py:1147-1155) with every trace's chain axis
     removed; ``bed`` the (n_iter, H, W) saved beds or the final bed, in
     data space."""
     if int(n_iter) < 1:
         raise ValueError("n_iter must be >= 1 (trace row 0 records the "
                          "initial state, reference loop semantics)")
+    from ..parallel.sampler import run_one_chain
+
     save_beds = bool(not only_save_last_bed if save_beds is None
                      else save_beds)
     sampler, state = single_chain_farm(chain, seed, device)
-    final, traces = _run_segmented(
-        lambda st, n: run_chain(sampler, st, n, save_beds), state,
-        int(n_iter), int(info_per_iter), bool(progress_bar), bool(plot))
+
+    def run(st, n):
+        st, tr = run_one_chain(sampler.static, sampler.consts, st, n,
+                               save_beds, sampler.generator, sampler.impl,
+                               "run")
+        return st, {k: host_copy(v) for k, v in tr.items()}
+
+    final, traces = _run_segmented(run, state, int(n_iter),
+                                   int(info_per_iter), bool(progress_bar),
+                                   bool(plot))
     out = {
         "bed": (traces["bed"] if save_beds
                 else host_copy(sampler.full_bed(final)[0])),

@@ -284,7 +284,15 @@ def sgs_init_state(bed_detrended, consts: SGSConsts, z0=None,
     ``n_chains`` chains.  ``z0`` is the host-precomputed exact transform
     of the bed (``ChainSGS.host_transform``), of the same shape; required
     when ``use_transform``, ignored otherwise (the z-plane then mirrors
-    the bed plane)."""
+    the bed plane).  The reference's ``sgs_init_state(bed_detrended, key,
+    consts, ...)`` has a key in second place; the port's states carry
+    none, so a second argument that is not an ``SGSConsts`` raises a
+    TypeError naming this form."""
+    if not isinstance(consts, SGSConsts):
+        raise TypeError("sgs_init_state(bed_detrended, consts, z0=None, "
+                        "use_transform=True, n_chains=None): consts must be "
+                        "an SGSConsts (the port's chain state carries no "
+                        f"key); got {type(consts).__name__}")
     device = consts.stacked.device
     bed = torch.as_tensor(np.asarray(bed_detrended, np.float32),
                           device=device)
@@ -354,6 +362,15 @@ def k_nearest_packed(candidate, rd, cd, K: int):
     bool; when fewer than K candidates exist the tail of ``sel`` is False
     and ``idx`` there is SB²-1, masked downstream.  The same set in the
     same order as the JAX package's ``k_nearest_packed``."""
+    ops = k_nearest_ops(candidate, rd, cd, K)
+    return ops["idx"], ops["sel"]
+
+
+def k_nearest_ops(candidate, rd, cd, K: int) -> dict:
+    """``k_nearest_packed``'s results by op, in its order: ``kthvalue``
+    (T), the ``tie cumsum`` and ``rank cumsum`` scans, ``searchsorted``,
+    then the packed ``idx`` and ``sel``; ``prepare`` keeps them for
+    ``testing.sgs_step_stages``."""
     N, SB = rd.shape
     big = 2 * SB * SB  # > any real squared distance
     d2 = (rd.long()[:, :, None] ** 2 + cd.long()[:, None, :] ** 2)
@@ -363,15 +380,15 @@ def k_nearest_packed(candidate, rd, cd, K: int):
     strict = d2r < T
     ties = cand & (d2r == T)
     n_strict = strict.sum(dim=1, keepdim=True)
-    take_tie = ties & (torch.cumsum(ties.long(), dim=1) <= K - n_strict)
-    valid = strict | take_tie
+    tie_scan = torch.cumsum(ties.long(), dim=1)
+    valid = strict | (ties & (tie_scan <= K - n_strict))
     rank = torch.cumsum(valid.long(), dim=1)          # inclusive
     js = torch.arange(K, device=rd.device).expand(N, K).contiguous()
     # index of the (j+1)-th valid cell = #{i : rank_i <= j}
     pos = torch.searchsorted(rank, js, right=True)
-    idx = torch.clamp(pos, max=SB * SB - 1)
-    sel = js < rank[:, -1:]
-    return idx, sel
+    return {"kthvalue": T, "tie cumsum": tie_scan, "rank cumsum": rank,
+            "searchsorted": pos, "idx": torch.clamp(pos, max=SB * SB - 1),
+            "sel": js < rank[:, -1:]}
 
 
 @dataclasses.dataclass
@@ -430,6 +447,7 @@ class Prepared:
     iaf: torch.Tensor         # (N, K) packed rows, float32
     jaf: torch.Tensor         # (N, K) packed cols, float32
     eps: float                # diagonal jitter
+    knn: dict                 # the K-nearest selection by op (k_nearest_ops)
 
 
 def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
@@ -469,7 +487,8 @@ def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
     euclid = torch.sqrt(rdf[:, :, None] * rdf[:, :, None]
                         + cdf[:, None, :] * cdf[:, None, :]) * consts.resolution
     candidate = cond_mask & (euclid <= consts.search_radius)
-    idx, sel = k_nearest_packed(candidate, rd, cd, K)
+    knn = k_nearest_ops(candidate, rd, cd, K)
+    idx, sel = knn["idx"], knn["sel"]
     dz = torch.where(cond_mask, z_w - z_u, 0.0).reshape(N, SB * SB)
     rhs_p = torch.where(sel, torch.gather(dz, 1, idx), 0.0)
     ia = torch.div(idx, SB, rounding_mode="floor")
@@ -479,7 +498,7 @@ def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
                     data_w=data_w, ring_dist=ring_dist, z_w=z_w, z_u=z_u,
                     idx=idx, sel=sel, m_sel=sel.to(torch.float32),
                     rhs_p=rhs_p, iaf=ia.to(torch.float32),
-                    jaf=ja.to(torch.float32), eps=eps)
+                    jaf=ja.to(torch.float32), eps=eps, knn=knn)
 
 
 def stamp_sigma(static: SGSStatic, consts: SGSConsts, prep: Prepared):
@@ -505,11 +524,14 @@ def solve(static: SGSStatic, consts: SGSConsts, prep: Prepared,
               prep.eps, static.cg_iters)
 
 
-def draw_z(static: SGSStatic, consts: SGSConsts, prep: Prepared, w_p, noise):
-    """Scatter-back, kriging adjustment and conditional draw.  Returns
-    (z_new_w, z_cache_w): the new window in simulation space, and its
-    z-plane cache value, clamped to the forward table's range."""
-    SB, NA, NE = static.SB, static.NA, static.NE
+def adjustment_ops(static: SGSStatic, consts: SGSConsts, prep: Prepared,
+                   w_p) -> dict:
+    """``draw_z``'s kriging adjustment by op, in its order: the weights'
+    ``scatter_add`` into the (N, SB²) window, the ``R2C FFT`` of the
+    weights padded to (NA, NA), and the ``C2R FFT`` of its product with
+    the adjustment spectrum, uncropped (``testing.sgs_step_stages`` reads
+    each)."""
+    SB, NA = static.SB, static.NA
     N = w_p.shape[0]
     w = torch.where(prep.sel, w_p, 0.0)
     # masked slots all point at SB²-1 and add exact zeros
@@ -517,8 +539,19 @@ def draw_z(static: SGSStatic, consts: SGSConsts, prep: Prepared, w_p, noise):
                          device=w_p.device).scatter_add_(1, prep.idx, w)
     w_pad = torch.zeros((N, NA, NA), dtype=torch.float32, device=w_p.device)
     w_pad[:, :SB, :SB] = w_full.view(N, SB, SB)
-    adj = torch.fft.irfft2(torch.fft.rfft2(w_pad) * consts.embed_spec,
-                           s=(NA, NA))[:, :SB, :SB]
+    spec = torch.fft.rfft2(w_pad)
+    return {"scatter_add": w_full, "R2C FFT": spec,
+            "C2R FFT": torch.fft.irfft2(spec * consts.embed_spec,
+                                        s=(NA, NA))}
+
+
+def draw_z(static: SGSStatic, consts: SGSConsts, prep: Prepared, w_p, noise):
+    """Scatter-back, kriging adjustment and conditional draw.  Returns
+    (z_new_w, z_cache_w): the new window in simulation space, and its
+    z-plane cache value, clamped to the forward table's range."""
+    SB, NE = static.SB, static.NE
+    N = w_p.shape[0]
+    adj = adjustment_ops(static, consts, prep, w_p)["C2R FFT"][:, :SB, :SB]
     z_draw = prep.z_u + adj
     if static.has_nugget:
         z_draw = z_draw + _f32(np.sqrt(np.float32(consts.nugget))) * noise[
@@ -726,6 +759,32 @@ def make_sgs_step(static: SGSStatic, impl: str = "auto"):
                          d.drop_u, d.u)
 
     return step
+
+
+RUN_SGS_CHAIN_FORM = ("run_sgs_chain(static, consts, state, n_iter, "
+                      "save_beds=False, *, rng)")
+
+
+def run_sgs_chain(static: SGSStatic, consts: SGSConsts, state: SGSState,
+                  n_iter: int, save_beds: bool = False, *, rng=None):
+    """``n_iter - 1`` SGS steps of one chain with the initial state as
+    row 0, the reference's ``run_sgs_chain``
+    (``mcmc_tpu/models/chain_sgs.py:1017``) with its arguments in its
+    order: the same trace keys (``loss_mc``, ``loss_data`` (0), ``loss``,
+    ``step``, ``block``, ``samples`` of the trend-restored bed, and under
+    ``save_beds`` ``bed``, the bed plus the trend), as device tensors with
+    leading dim ``n_iter`` and no chain axis.  ``state`` holds one chain
+    (a leading axis of 1); ``rng`` (keyword-only, required) is a
+    ``torch.Generator`` or per-chain streams, in place of the key the
+    reference's state carries.  The kernels run for CUDA tensors, their
+    plain versions for CPU ones."""
+    from ..parallel.sampler import run_one_chain
+
+    if not isinstance(static, SGSStatic):
+        raise TypeError(f"{RUN_SGS_CHAIN_FORM}: static must be an SGSStatic,"
+                        f" got {type(static).__name__}")
+    return run_one_chain(static, consts, state, n_iter, save_beds, rng,
+                         "auto", RUN_SGS_CHAIN_FORM)
 
 
 class ChainSGS:

@@ -173,22 +173,24 @@ def draw_block_params(gen, n, static: RandFieldStatic,
     size_idx = torch.randint(0, static.n_sizes, (n,), generator=gen,
                              device=device)
     scale, nug, range_x, range_y = sample_field_params(
-        gen, n, arrays.scale_min, arrays.scale_max, arrays.nugget_max,
+        gen, arrays.scale_min, arrays.scale_max, arrays.nugget_max,
         arrays.range_min_x, arrays.range_max_x, arrays.range_min_y,
-        arrays.range_max_y, static.isotropic, device)
+        arrays.range_max_y, static.isotropic, n=n, device=device)
     return size_idx, scale, nug, range_x, range_y
 
 
-def draw_block(gen, n, static: RandFieldStatic, arrays: RandFieldArrays):
+def draw_block(gen, static: RandFieldStatic, arrays: RandFieldArrays, *,
+               n: int):
     """``n`` finished proposal blocks on the (B, B) canvas (reference
-    RandField.get_rfblock, MCMC.py:742-778), by either generation method.
+    RandField.get_rfblock, MCMC.py:742-778), by either generation method;
+    the reference's arguments in its order, ``gen`` in place of its key.
     Returns (f (n, B, B), size_idx, w, h); cells outside each (h, w)
     block are zero."""
     B = static.B
     size_idx, scale, nug, range_x, range_y = draw_block_params(
         gen, n, static, arrays)
     if static.spectral:
-        raw = spectral_field(gen, n, (B, B), static.resolution,
+        raw = spectral_field(gen, (B, B), static.resolution,
                              static.model_name, range_x, range_y,
                              static.smoothness)
     else:
@@ -346,12 +348,12 @@ class RandField:
         out = []
         for _ in range(int(n)):
             scale, nug, rx, ry = sample_field_params(
-                gen, 1, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
+                gen, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
                 cfg.range_min_x, cfg.range_max_x, cfg.range_min_y,
-                cfg.range_max_y, cfg.isotropic, device)
+                cfg.range_max_y, cfg.isotropic, n=1, device=device)
             if cfg.spectral:
-                raw = spectral_field(gen, 1, shape, res, cfg.model_name, rx,
-                                     ry, cfg.smoothness)
+                raw = spectral_field(gen, shape, res, cfg.model_name, rx, ry,
+                                     cfg.smoothness)
                 f = standardize_masked(raw, torch.ones(
                     shape, dtype=torch.bool, device=device))
                 noise = torch.randn((1,) + shape, generator=gen,
@@ -372,5 +374,5 @@ class RandField:
         """One edge-masked proposal block, trimmed to its (h, w) (reference
         get_rfblock, MCMC.py:742-778)."""
         static, arrays = self._ensure_built()
-        f, _, w, h = draw_block(self._generator(), 1, static, arrays)
+        f, _, w, h = draw_block(self._generator(), static, arrays, n=1)
         return f[0, :int(h[0]), :int(w[0])].cpu().numpy()

@@ -10,8 +10,13 @@ from .covariance import (CovarianceSpec, covariance_norm, make_matern_table,
                          make_rho, make_rotation_matrix, make_sigma)
 from .cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
                         mix_masked_cg_reference)
+from .distance import min_dist_from_mask
+from .logistic import crf_weight_from_dist, logistic_weight, make_edge_mask
 from .lut_kernel import lut_interp, lut_interp_reference
 from .noise_kernel import batched_normal, batched_normal_reference
+from .physics import (mass_conservation_residual, masked_gaussian_loss,
+                      thickness_violations)
+from .spectral import sample_field_params, spectral_density, spectral_field
 from .srf_kernel import srf_harmonics, srf_harmonics_reference
 from .transforms import NormalScoreTransform
 from .sgs_window_kernel import (window_extract, window_extract_reference,
@@ -27,4 +32,8 @@ __all__ = ["CovarianceSpec", "covariance_norm", "make_matern_table",
            "mix_masked_cg_reference", "lut_interp", "lut_interp_reference",
            "window_extract", "window_extract_reference", "window_writeback",
            "window_writeback_reference", "srf_harmonics",
-           "srf_harmonics_reference"]
+           "srf_harmonics_reference", "mass_conservation_residual",
+           "masked_gaussian_loss", "thickness_violations",
+           "sample_field_params", "spectral_density", "spectral_field",
+           "logistic_weight", "crf_weight_from_dist", "make_edge_mask",
+           "min_dist_from_mask"]

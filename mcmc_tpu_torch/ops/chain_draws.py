@@ -32,10 +32,13 @@ Three pieces, as for every kernel of the port:
 - ``chain_draws_reference``: the plain PyTorch version, Philox in int64
   arithmetic (``noise_kernel.keyed_words``) and the index product split
   with ``noise_kernel._mulhilo``;
-- ``csrc/chain_draws.cu``: the hand-written CUDA kernel for Hopper, one
-  thread a Philox call, built with ``-fmad=false``: the two agree
-  bitwise on the card.  It is the port's own kernel: the JAX package
-  draws these values with ``jax.random`` under ``vmap``, not in Pallas;
+- ``csrc/chain_draws.cu``: the hand-written CUDA kernel for Hopper,
+  tiles of a chain's calls with several Philox calls a thread under one
+  key schedule past one wave of calls, a flat grid of one call a thread
+  up to one, built with ``-fmad=false``: the
+  two agree bitwise on the card.  It is the port's own kernel: the JAX
+  package draws these values with ``jax.random`` under ``vmap``, not in
+  Pallas;
 - ``chain_draws``: the dispatcher.  CPU keys go to the plain version;
   CUDA keys launch the kernel or raise.  Nothing falls back.
   ``chain_draws.launches`` counts kernel launches.
@@ -180,10 +183,18 @@ def chain_draws_reference(keys, step, plan: DrawPlan):
 
 
 def bind_library(lib):
-    """Type the entry points of a built ``chain_draws.cu``."""
+    """Type the entry points of a built ``chain_draws.cu`` (the launch
+    description and the empty launch where the source has them)."""
     lib.mcmc_chain_draws.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
     lib.mcmc_chain_draws.restype = ctypes.c_int
+    if hasattr(lib, "mcmc_chain_draws_info"):
+        lib.mcmc_chain_draws_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_void_p]
+        lib.mcmc_chain_draws_info.restype = ctypes.c_int
+        lib.mcmc_chain_draws_empty.argtypes = [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        lib.mcmc_chain_draws_empty.restype = ctypes.c_int
     lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -198,36 +209,74 @@ def _cuda_library():
     return lib
 
 
-def chain_draws(keys, step, plan: DrawPlan):
-    """``plan``'s two buffers (module docstring): the operands checked,
-    then the plain version for CPU keys, the CUDA kernel for CUDA keys."""
-    check_streams(keys, step)
+def launch_draws(lib, keys, step, plan: DrawPlan):
+    """Launch the draw kernel of ``lib`` (this checkout's, or another's in
+    ``ab_draw_kernel.py``) on CUDA ``keys`` and ``step`` on the current
+    stream; returns the two buffers."""
     n = keys.shape[0]
-    if n * plan.calls > 2 ** 31 - 257:
-        raise ValueError(f"{n} chains x {plan.calls} Philox calls: the "
-                         "kernel takes at most 2^31 - 257 per launch")
-    if keys.device.type == "cpu":
-        return chain_draws_reference(keys, step, plan)
     keys, step = keys.contiguous(), step.contiguous()
     fout = torch.empty((n, plan.floats), dtype=torch.float32,
                        device=keys.device)
     iout = torch.empty((n, plan.ints), dtype=torch.int64, device=keys.device)
-    lib = _cuda_library()
     stream = torch.cuda.current_stream(keys.device).cuda_stream
     with torch.cuda.device(keys.device):
         err = lib.mcmc_chain_draws(
             keys.data_ptr(), step.data_ptr(),
             plan.table.ctypes.data, len(plan.entries), n, plan.calls,
             plan.floats, plan.ints, fout.data_ptr(), iout.data_ptr(), stream)
-    if err != 0:
-        msg = lib.mcmc_cuda_error_string(err).decode()
-        raise RuntimeError(f"chain draws kernel launch failed: {msg} "
-                           f"({err})")
-    chain_draws.launches += 1
+    _raise_on(lib, err, "kernel launch")
     return fout, iout
 
 
+def chain_draws(keys, step, plan: DrawPlan):
+    """``plan``'s two buffers (module docstring): the operands checked,
+    then the plain version for CPU keys, the CUDA kernel for CUDA keys."""
+    check_streams(keys, step)
+    n = keys.shape[0]
+    if n * plan.calls > 2 ** 31 - 257 or max(plan.floats,
+                                               plan.ints) >= 2 ** 31:
+        raise ValueError(f"{n} chains x {plan.calls} Philox calls, "
+                         f"{plan.floats} floats and {plan.ints} ints a "
+                         "chain: the kernel takes at most 2^31 - 257 calls "
+                         "a launch and 2^31 - 1 values of a type a chain")
+    if keys.device.type == "cpu":
+        return chain_draws_reference(keys, step, plan)
+    out = launch_draws(_cuda_library(), keys, step, plan)
+    chain_draws.launches += 1
+    return out
+
+
 chain_draws.launches = 0
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.mcmc_cuda_error_string(err).decode()
+        raise RuntimeError(f"chain draws {what} failed: {msg} ({err})")
+
+
+def chain_draws_info(n_chains: int, calls: int) -> dict:
+    """The kernel's launch for ``n_chains`` chains of ``calls`` Philox
+    calls: threads a CTA, CTAs, Philox calls a thread, registers and
+    local memory bytes a thread, and resident CTAs an SM (the CUDA
+    occupancy API)."""
+    lib = _cuda_library()
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib, lib.mcmc_chain_draws_info(int(n_chains), int(calls),
+                                             out), "info")
+    return dict(zip(("threads", "ctas", "calls_a_thread", "registers",
+                     "local_bytes", "resident_ctas_per_sm"), out))
+
+
+def empty_draws_launch(n_chains: int, calls: int, device=None):
+    """An empty kernel on the grid of a launch for ``n_chains`` chains of
+    ``calls`` Philox calls, on the current stream: that launch's floor."""
+    lib = _cuda_library()
+    device = torch.device("cuda" if device is None else device)
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.mcmc_chain_draws_empty(
+            int(n_chains), int(calls),
+            torch.cuda.current_stream(device).cuda_stream), "empty launch")
 
 
 def draw_plan(streams, plan: DrawPlan, impl: str = "auto") -> dict:
@@ -245,5 +294,6 @@ def cached_plan(entries: tuple) -> DrawPlan:
 
 
 __all__ = ["DrawEntry", "DrawPlan", "SLOTS", "cached_plan", "chain_draws",
-           "chain_draws_reference", "draw_plan", "entry", "index_from_words",
+           "chain_draws_info", "chain_draws_reference", "draw_plan",
+           "empty_draws_launch", "entry", "index_from_words", "launch_draws",
            "uniform_from_words"]

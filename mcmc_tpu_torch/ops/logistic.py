@@ -3,7 +3,8 @@
 PyTorch counterpart of ``mcmc_tpu/ops/logistic.py``: the map
 f(x) = L / (1 + exp(-k (x - x0))) - offset applied to distances rescaled so
 that ``max_dist`` maps to 1.  ``make_edge_mask`` stays host numpy (a setup
-precompute); ``crf_weight_from_dist`` runs on tensors.
+precompute); ``logistic_weight`` and ``crf_weight_from_dist`` run on
+tensors, on their device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ def _rescaled_logistic(dist, L, x0, k, offset, max_dist, xp):
     """dist -> (logistic(dist/max_dist clamped to 1), the rescaled dist)."""
     dist_rescale = xp.where(dist > max_dist, 1.0, dist / max_dist)
     return L / (1.0 + xp.exp(-k * (dist_rescale - x0))) - offset, dist_rescale
+
+
+def logistic_weight(dist, L, x0, k, offset, max_dist):
+    """Rescale a distance tensor by ``max_dist`` (clamped to 1) and apply
+    the logistic map."""
+    out, _ = _rescaled_logistic(torch.as_tensor(dist), L, x0, k, offset,
+                                max_dist, torch)
+    return out
 
 
 def crf_weight_from_dist(dist, L, x0, k, offset, max_dist):

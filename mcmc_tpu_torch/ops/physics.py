@@ -30,11 +30,30 @@ def _nansq(x):
     return torch.where(torch.isnan(sq), torch.zeros_like(sq), sq)
 
 
+# the longest row summed in one reduction: PyTorch's CUDA reduction gives
+# each output of a row of up to 63 elements one warp (or fewer lanes) in
+# an order set by the row's length alone, whatever the number of rows
+ROW_MAX = 63
+
+
+def row_sum(x):
+    """Sum over the last axis, in an order that does not depend on the
+    leading axes' sizes: a row longer than ROW_MAX is zero-padded to a
+    multiple of 32 and summed 32 at a time first.  So chain 0's sum is the
+    same bits in a batch of N as alone, on the card as on the CPU (a
+    one-pass ``sum`` lets PyTorch pick a batch-dependent order)."""
+    n = x.shape[-1]
+    if n > ROW_MAX:
+        x = torch.nn.functional.pad(x, (0, -n % 32)).unflatten(-1, (-1, 32))
+        return row_sum(x.sum(-1))
+    return x.sum(-1)
+
+
 def masked_sq_sum(res, mask):
     """nansum of squared residuals inside ``mask`` over the trailing (H, W)
-    axes (no sigma scaling)."""
+    axes (no sigma scaling), over W, then H (``row_sum``)."""
     sq = _nansq(res)
-    return torch.where(mask, sq, torch.zeros_like(sq)).sum(dim=(-2, -1))
+    return row_sum(row_sum(torch.where(mask, sq, torch.zeros_like(sq))))
 
 
 def masked_gaussian_loss(res, mask, sigma):

@@ -52,11 +52,12 @@ def field_params(unit, scale_min, scale_max, nugget_max, range_min_x,
     return scale, nug, range_x, range_y
 
 
-def sample_field_params(gen, n, scale_min, scale_max, nugget_max,
+def sample_field_params(gen, scale_min, scale_max, nugget_max,
                         range_min_x, range_max_x, range_min_y, range_max_y,
-                        isotropic: bool, device):
+                        isotropic: bool, *, n: int, device):
     """Per-draw variogram parameters for ``n`` chains from ``gen``
-    (``field_params``)."""
+    (``field_params``); the reference's arguments in its order, ``gen``
+    in place of its key."""
     return field_params(
         lambda name: torch.rand((n,), generator=gen, device=device,
                                 dtype=torch.float32),
@@ -140,11 +141,13 @@ def half_spectrum_noise(gen, n, shape, device, impl: str = "auto"):
     return torch.complex(zn[:, :ny], zn[:, ny:])
 
 
-def spectral_field(gen, n, shape, res, model_name: str, range_x, range_y,
+def spectral_field(gen, shape, res, model_name: str, range_x, range_y,
                    smoothness):
-    """``n`` raw field realizations of ``shape`` (not standardized; callers
-    standardize over the block and scale)."""
-    noise = half_spectrum_noise(gen, n, shape, range_x.device)
+    """One raw field realization of ``shape`` for each of the (n,)
+    ``range_x`` (not standardized; callers standardize over the block and
+    scale); the reference's arguments in its order, ``gen`` in place of
+    its key."""
+    noise = half_spectrum_noise(gen, range_x.shape[0], shape, range_x.device)
     return spectral_field_from_noise(noise, shape, res, model_name,
                                      range_x, range_y, smoothness)
 

@@ -22,6 +22,13 @@ checkpoints (``io/checkpoint.py``).  ``run`` also thins each chain's bed
 to one snapshot a segment (``collect_beds``) and traces its second
 segment with ``torch.profiler`` (``profile_dir``); ``run_segment`` can
 trace every step's bed (``save_beds``).
+
+The reference's functional forms are here too, with its arguments in its
+order: ``run_chains(static, consts, states, n_steps, save_beds, *, rng)``
+(both families, picked by the static's type; the random source a
+keyword-only ``rng`` where the reference's states carry keys) and
+``init_states(initial_beds, consts, ...)``.  ``MultiChainSampler``'s
+``run_segment`` and ``init`` call them: one code path.
 """
 
 from __future__ import annotations
@@ -33,14 +40,176 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..models.chain_crf import (ChainState, IMPLS, host_copy, init_state,
-                                make_step)
-from ..models.chain_sgs import (ChainSGS, SGSState, make_sgs_step,
-                                sgs_init_state)
+from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
+                                host_copy, init_state, make_step)
+from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
+                                make_sgs_step, sgs_init_state)
 from ..utils.progress import MultiChainProgress
 from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, generator_kind,
                          generator_state, is_seed_list, make_generator,
                          resolve_device, resolve_seed, restore_generator)
+
+
+RUN_CHAINS_FORM = ("run_chains(static, consts, states, n_steps, "
+                   "save_beds=False, *, rng, impl='auto')")
+
+
+def check_rng(rng, form: str) -> None:
+    """Raise a TypeError naming the port's ``form`` unless ``rng`` is the
+    port's random source: a ``torch.Generator`` or per-chain streams."""
+    if not isinstance(rng, (torch.Generator, PerChainStreams)):
+        raise TypeError(
+            f"{form}: rng must be a torch.Generator or per-chain streams "
+            "(utils/rng.PerChainStreams), the port's random source in place "
+            f"of the reference's key; got {type(rng).__name__}")
+
+
+def full_bed(consts, states) -> torch.Tensor:
+    """(n_chains, H, W) beds in data space: an SGS chain's with its trend
+    restored."""
+    return (states.bed + consts.trend if isinstance(consts, SGSConsts)
+            else states.bed)
+
+
+def trace_buffers(static, n_chains: int, n_steps: int, device,
+                  save_beds: bool = False) -> dict:
+    """Empty time-major traces of ``n_steps`` steps of ``n_chains``
+    chains: the losses, the MH decision, the block and the probes, and
+    with ``save_beds`` every step's full bed."""
+    N, P = n_chains, static.P
+    kw = dict(device=device)
+    beds = ({"bed": torch.empty((n_steps, N, static.H, static.W),
+                                dtype=torch.float32, **kw)}
+            if save_beds else {})
+    return beds | {
+        "loss_mc": torch.empty((n_steps, N), dtype=torch.float32, **kw),
+        "loss_data": torch.empty((n_steps, N), dtype=torch.float32, **kw),
+        "loss": torch.empty((n_steps, N), dtype=torch.float32, **kw),
+        "step": torch.empty((n_steps, N), dtype=torch.bool, **kw),
+        "block": torch.empty((n_steps, N, 4), dtype=torch.float32, **kw),
+        "samples": torch.empty((n_steps, N, P), dtype=torch.float32, **kw),
+    }
+
+
+def initial_row(consts, states, save_beds: bool = False) -> dict:
+    """Trace row 0, the states themselves, as device tensors with a
+    leading (time) axis of 1: the losses, no step, a NaN block, the probes
+    and, with ``save_beds``, a copy of the full bed."""
+    n = states.fields.shape[0]
+    device = states.fields.device
+    sij = consts.sample_ij
+    samples = (states.bed[:, sij[:, 0], sij[:, 1]] if sij.shape[0]
+               else states.bed.new_zeros((n, 0)))
+    if isinstance(consts, SGSConsts):  # probes report the trend-restored bed
+        samples = samples + consts.trend[sij[:, 0], sij[:, 1]]
+    loss_data = getattr(states, "loss_data",
+                        torch.zeros_like(states.loss_mc))
+    row = {
+        "loss_mc": states.loss_mc,
+        "loss_data": loss_data,
+        "loss": states.loss_mc + loss_data,
+        "step": torch.zeros(n, dtype=torch.bool, device=device),
+        "block": torch.full((n, 4), float("nan"), device=device),
+        "samples": samples,
+    }
+    if save_beds:  # the state's bed plane is updated in place by steps
+        row["bed"] = full_bed(consts, states).clone()
+    return {k: v[None] for k, v in row.items()}
+
+
+def run_chains(static, consts, states, n_steps: int, save_beds: bool = False,
+               *, rng=None, impl: str = "auto"):
+    """Advance a batch of chains ``n_steps`` MH steps, the reference's
+    ``run_chains`` (``mcmc_tpu/parallel/sampler.py:39``) with its
+    arguments in its order.
+
+    Both chain families: ``static`` is a ``CRFStatic`` or an
+    ``SGSStatic``, which picks the step (``make_step`` /
+    ``make_sgs_step``).  ``states`` has a leading chain axis and is
+    updated in place.  ``rng`` (keyword-only, required) is the port's
+    random source in place of the key the reference's states carry: a
+    ``torch.Generator``, or per-chain streams whose step counter advances
+    once a step.  ``impl``: "auto" runs the CUDA kernels for CUDA tensors
+    and their plain versions for CPU ones, "eager" always the plain
+    versions, "fused" the kernels or raises; the reference's "xla" is
+    refused.  Returns (states, traces) with time-major device traces of
+    shape (n_steps, n_chains, ...); ``save_beds`` adds ``traces["bed"]``,
+    every step's ``full_bed``."""
+    check_rng(rng, RUN_CHAINS_FORM)
+    if isinstance(static, SGSStatic):
+        step = make_sgs_step(static, impl)
+    elif isinstance(static, CRFStatic):
+        step = make_step(static, impl)
+    else:
+        raise TypeError(f"{RUN_CHAINS_FORM}: static must be a CRFStatic or "
+                        f"an SGSStatic, got {type(static).__name__}")
+    n_steps = int(n_steps)
+    bufs = trace_buffers(static, states.fields.shape[0], n_steps,
+                         states.fields.device, save_beds)
+    per_chain = isinstance(rng, PerChainStreams)
+    for t in range(n_steps):
+        states, tr = step(consts, states, rng)
+        if per_chain:
+            rng.advance()
+        if save_beds:
+            tr = dict(tr, bed=full_bed(consts, states))
+        for k, buf in bufs.items():
+            buf[t] = tr[k]
+    return states, bufs
+
+
+def run_one_chain(static, consts, state, n_iter: int, save_beds: bool,
+                  rng, impl: str, form: str):
+    """``n_iter - 1`` steps of one chain through ``run_chains``, with the
+    initial state prepended as row 0 (the reference loop ``for i in
+    range(1, n_iter)``, MCMC.py:1247): (state, device traces of leading
+    dim ``n_iter`` and no chain axis).  ``form`` names the caller in
+    errors."""
+    check_rng(rng, form)
+    if int(n_iter) < 1:
+        raise ValueError(f"{form}: n_iter must be >= 1 (trace row 0 "
+                         "records the initial state)")
+    if state.fields.shape[0] != 1:
+        raise ValueError(f"{form} runs one chain (a state with a leading "
+                         f"axis of 1), got {state.fields.shape[0]}; "
+                         "run_chains runs a batch")
+    head = initial_row(consts, state, save_beds)
+    state, tail = run_chains(static, consts, state, int(n_iter) - 1,
+                             save_beds, rng=rng, impl=impl)
+    return state, {k: torch.cat([head[k], tail[k]])[:, 0] for k in head}
+
+
+def init_states(initial_beds, consts, n_chains: Optional[int] = None, *,
+                z0=None):
+    """Batched initial states (full-grid residual and loss of every
+    chain), the reference's ``init_states`` (``mcmc_tpu/parallel/
+    sampler.py:169``) for either family, picked by ``consts``' type.
+
+    The reference's ``keys`` argument has no counterpart: the port's
+    states carry no key (their random source is ``run_chains``' ``rng``),
+    and a call that passes one raises a TypeError naming this form.
+    ``initial_beds``: (N, H, W), or one (H, W) bed for ``n_chains``
+    chains; an SGS chain's detrended.  ``z0``, required for an SGS chain
+    and refused for a CRF one: the z-plane of the beds, their normal
+    scores (``ChainSGS.host_transform``) when the chain transforms, else
+    the detrended beds themselves.  The consts do not say whether the
+    chain transforms (its static does), so the caller states the plane."""
+    if isinstance(consts, SGSConsts):
+        if z0 is None:
+            raise ValueError(
+                "an SGS chain's init_states needs z0, the z-plane of its "
+                "beds: their normal scores (ChainSGS.host_transform) when "
+                "the chain transforms, else the detrended beds themselves")
+        return sgs_init_state(initial_beds, consts, z0, True, n_chains)
+    if isinstance(consts, CRFConsts):
+        if z0 is not None:
+            raise ValueError("z0 is an SGS chain's z-plane; a CRF chain "
+                             "has none")
+        return init_state(initial_beds, consts, n_chains)
+    raise TypeError("init_states(initial_beds, consts, n_chains=None, *, "
+                    "z0=None): consts must be a CRFConsts or an SGSConsts "
+                    "(the port's states carry no key); got "
+                    f"{type(consts).__name__}")
 
 
 class MultiChainSampler:
@@ -67,8 +236,6 @@ class MultiChainSampler:
         self.impl = impl
         self.is_sgs = isinstance(chain, ChainSGS)
         self.static, self.consts = chain.build(self.device)
-        self._step = (make_sgs_step if self.is_sgs else make_step)(
-            self.static, impl)
         self.generator = None
 
     # -- state ---------------------------------------------------------------
@@ -106,9 +273,9 @@ class MultiChainSampler:
         if beds.ndim == 3 and beds.shape[0] != self.n_chains:
             raise ValueError("initial_beds leading dim must equal n_chains")
         if self.is_sgs:
-            return sgs_init_state(beds, self.consts, z0,
-                                  self.static.use_transform, self.n_chains)
-        return init_state(beds, self.consts, self.n_chains)
+            return init_states(beds, self.consts, self.n_chains,
+                               z0=z0 if self.static.use_transform else beds)
+        return init_states(beds, self.consts, self.n_chains)
 
     def rng_kind(self, seeds=None) -> str:
         """The kind of stream this sampler owns: its stream's after
@@ -144,71 +311,27 @@ class MultiChainSampler:
 
     # -- execution -----------------------------------------------------------
 
-    def _trace_buffers(self, n_steps: int, save_beds: bool = False):
-        N, P = self.n_chains, self.static.P
-        kw = dict(device=self.device)
-        beds = ({"bed": torch.empty((n_steps, N, self.static.H,
-                                     self.static.W), dtype=torch.float32,
-                                    **kw)} if save_beds else {})
-        return beds | {
-            "loss_mc": torch.empty((n_steps, N), dtype=torch.float32, **kw),
-            "loss_data": torch.empty((n_steps, N), dtype=torch.float32, **kw),
-            "loss": torch.empty((n_steps, N), dtype=torch.float32, **kw),
-            "step": torch.empty((n_steps, N), dtype=torch.bool, **kw),
-            "block": torch.empty((n_steps, N, 4), dtype=torch.float32, **kw),
-            "samples": torch.empty((n_steps, N, P), dtype=torch.float32,
-                                   **kw),
-        }
-
     def full_bed(self, states: ChainState | SGSState) -> torch.Tensor:
-        """(n_chains, H, W) beds in data space: an SGS chain's with its
-        trend restored."""
-        return (states.bed + self.consts.trend if self.is_sgs
-                else states.bed)
+        """(n_chains, H, W) beds in data space (``full_bed``)."""
+        return full_bed(self.consts, states)
 
     def run_segment(self, states: ChainState | SGSState, n_steps: int,
                     save_beds: bool = False):
-        """``n_steps`` MH steps; returns (states, traces) with time-major
-        device traces of shape (n_steps, n_chains, ...).  ``save_beds``
-        adds ``traces["bed"]``, every step's ``full_bed``."""
+        """``n_steps`` MH steps of ``run_chains`` on the sampler's stream;
+        returns (states, traces) with time-major device traces of shape
+        (n_steps, n_chains, ...).  ``save_beds`` adds ``traces["bed"]``,
+        every step's ``full_bed``."""
         if self.generator is None:
             raise RuntimeError("call init() before running the sampler")
-        bufs = self._trace_buffers(int(n_steps), save_beds)
-        per_chain = isinstance(self.generator, PerChainStreams)
-        for t in range(int(n_steps)):
-            states, tr = self._step(self.consts, states, self.generator)
-            if per_chain:
-                self.generator.advance()
-            if save_beds:
-                tr = dict(tr, bed=self.full_bed(states))
-            for k, buf in bufs.items():
-                buf[t] = tr[k]
-        return states, bufs
+        return run_chains(self.static, self.consts, states, n_steps,
+                          save_beds, rng=self.generator, impl=self.impl)
 
     def initial_row(self, states: ChainState | SGSState,
                     save_beds: bool = False):
-        """Trace row 0, the state itself, as host numpy with a leading
-        axis of 1: the losses, no step, a NaN block, the probes and, with
-        ``save_beds``, the full bed."""
-        N = self.n_chains
-        sij = self.consts.sample_ij
-        samples = (states.bed[:, sij[:, 0], sij[:, 1]] if sij.shape[0]
-                   else states.bed.new_zeros((N, 0)))
-        if self.is_sgs:  # the probes report the trend-restored bed
-            samples = samples + self.consts.trend[sij[:, 0], sij[:, 1]]
-        loss_data = getattr(states, "loss_data",
-                            torch.zeros_like(states.loss_mc))
-        row = {
-            "loss_mc": states.loss_mc,
-            "loss_data": loss_data,
-            "loss": states.loss_mc + loss_data,
-            "step": torch.zeros(N, dtype=torch.bool, device=self.device),
-            "block": torch.full((N, 4), float("nan"), device=self.device),
-            "samples": samples,
-        }
-        if save_beds:
-            row["bed"] = self.full_bed(states)
-        return {k: host_copy(v)[None] for k, v in row.items()}
+        """Trace row 0, the state itself (``initial_row``), as host numpy
+        with a leading axis of 1."""
+        return {k: host_copy(v) for k, v in
+                initial_row(self.consts, states, save_beds).items()}
 
     def run(self, states: ChainState | SGSState, n_iter: int,
             segment_size: int = 2000,

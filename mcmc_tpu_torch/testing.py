@@ -130,3 +130,76 @@ def srf_rounding_bound(kv, z1, z2, ny: int, nx: int, res: float):
             slip = ((b_m + a_m).double() - (b_m.double() + a_m.double()))
             out[cs] += (slip.abs() * weight[:, None, None, ms]).sum(-1)
     return out * srf_norm(M)
+
+
+def sgs_step_stages(static, consts, state, d, impl: str = "auto") -> dict:
+    """The intermediates of one SGS step's MH update on the draws ``d``
+    (``chain_sgs.SGSDraws``), by name, in the step's order, without
+    writing the state: the window extract; in ``prepare``, the
+    unconditional draw's C2R FFT and each op of the K-nearest selection
+    (``kthvalue``, the tie and rank ``cumsum`` scans, ``searchsorted``)
+    and the CG's operands; the CG; in ``draw_z``, the adjustment's R2C
+    and C2R FFTs; the LUT; in ``commit_core``, the residual, both masked
+    square sums and the decision.  ``chip_smoke.py``'s [independence]
+    compares chain 0's in a batch of N and a batch of 1 to find the
+    first op whose result depends on the batch."""
+    from .models import chain_sgs as sgs
+    from .ops.physics import masked_sq_sum
+
+    kernel = impl != "eager"
+    out = {}
+    geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+    extract = (sgs.window_extract if kernel
+               else sgs.window_extract_reference)
+    windows = extract(consts.stacked, state.fields, geo.sx32, geo.sy32,
+                      static.SB)
+    out["window extract"] = windows
+    prep = sgs.prepare(static, consts, windows, geo, d.noise, d.drop_u)
+    out["C2R FFT of the unconditional draw"] = prep.z_u
+    for name in ("kthvalue", "tie cumsum", "rank cumsum", "searchsorted"):
+        out[name] = prep.knn[name]
+    out["packed idx, sel"] = torch.cat([prep.idx, prep.sel.long()], dim=1)
+    out["CG operands"] = torch.stack([prep.rhs_p, prep.iaf, prep.jaf,
+                                      prep.m_sel], dim=1)
+    w_p = sgs.solve(static, consts, prep, impl)
+    out["CG"] = w_p
+    adj = sgs.adjustment_ops(static, consts, prep, w_p)
+    out["scatter_add"] = adj["scatter_add"]
+    out["R2C FFT of the adjustment"] = torch.view_as_real(adj["R2C FFT"])
+    out["C2R FFT of the adjustment"] = adj["C2R FFT"]
+    z_new_w, z_cache_w = sgs.draw_z(static, consts, prep, w_p, d.noise)
+    out["z_new_w"] = z_new_w
+    inv_draw = None
+    if static.use_transform:
+        nst = consts.nst
+        lut = sgs.lut_interp if kernel else sgs.lut_interp_reference
+        inv_draw = lut(z_new_w, nst.inv_lo, nst.inv_scale, nst.inv_table)
+        out["LUT"] = inv_draw
+    new_w, sc = sgs.commit_core(consts, state, prep, z_new_w, z_cache_w,
+                                inv_draw, d.u)
+    out["new window (residual patch)"] = new_w
+    patch = (prep.ring_dist <= 1) & (windows[:, 7] > 0)
+    out["masked square sum, new"] = masked_sq_sum(new_w[:, 1], patch)
+    out["masked square sum, old"] = masked_sq_sum(windows[:, sgs.N_CONST + 1],
+                                                  patch)
+    out["loss, decision"] = torch.stack([sc.t, sc.comp,
+                                         sc.accept.to(torch.float32),
+                                         sc.write.to(torch.float32)], dim=1)
+    return out
+
+
+def first_batch_dependence(many: dict, one: dict):
+    """The first stage (``sgs_step_stages``' order) whose chain-0 result
+    in the batch ``many`` differs bitwise from the batch of one ``one``
+    (NaN equal to NaN), or None."""
+    for name, a in many.items():
+        b = one[name]
+        x, y = a[:1], b[:1]
+        if x.shape != y.shape or not torch.equal(
+                torch.nan_to_num(x, nan=0.0) if x.is_floating_point() else x,
+                torch.nan_to_num(y, nan=0.0) if y.is_floating_point() else y):
+            return name
+        if x.is_floating_point() and not torch.equal(torch.isnan(x),
+                                                     torch.isnan(y)):
+            return name
+    return None

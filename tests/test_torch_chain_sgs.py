@@ -474,3 +474,37 @@ def test_fused_impl_and_cuda_without_mixture_refuse(problem):
     assert torch.equal(w, masked_cg_reference(Sigma, prep.m_sel, prep.rhs_p,
                                               prep.eps, static.cg_iters))
     assert torch.equal(tsgs.solve(static, consts, prep, "eager"), w)
+
+
+@pytest.mark.parametrize("save_beds", [False, True])
+def test_run_sgs_chain_layout_matches_jax(problem, save_beds):
+    """``models.run_sgs_chain`` against the JAX ``run_sgs_chain`` on the
+    same one-chain state, carried by ``interop``: the same trace keys,
+    each of the JAX shape (leading dim n_iter, no chain axis) and kind;
+    row 0 the initial state's (losses, no step, a NaN block, the
+    trend-restored probes and bed) to float32 rtol 1e-6 (the same float32
+    additions).  The later rows come from the two packages' own random
+    streams."""
+    n_iter = 3
+    jc, _ = chain_pair(problem, "transform_detrend", neighbors=16,
+                       radius=10e3)
+    js, jk = jc.build()
+    ps, pk = sgs_consts_from_numpy(jax.tree.map(np.asarray, jk),
+                                   dataclasses.asdict(js), device="cpu")
+    jstate = jsgs.sgs_init_state(jc._initial_detrended, KEY, jk,
+                                 z0=jc._initial_z, use_transform=True)
+    pstate = sgs_state_from_numpy(jax.tree.map(
+        np.asarray, dataclasses.replace(jstate, key=None)), device="cpu")
+    _, jtr = jsgs.run_sgs_chain(js, jk, jstate, n_iter, save_beds)
+    _, ptr = tsgs.run_sgs_chain(ps, pk, pstate, n_iter, save_beds,
+                                rng=torch.Generator().manual_seed(4))
+    assert set(ptr) == set(jtr) == ({"loss_mc", "loss_data", "loss", "step",
+                                     "block", "samples"}
+                                    | ({"bed"} if save_beds else set()))
+    for k, want in jtr.items():
+        want = np.asarray(want)
+        got = ptr[k].numpy()
+        assert got.shape == want.shape, k
+        assert got.dtype.kind == want.dtype.kind, k
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6, err_msg=k)
+    assert not ptr["step"][0] and torch.isnan(ptr["block"][0]).all()

@@ -25,7 +25,9 @@ from mcmc_tpu_torch.ops.cg_kernel import (cg_kernel_info, kernel_max_k,
                                           mix_masked_cg_reference)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
 from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
-from mcmc_tpu_torch.ops.chain_draws import (SLOTS, DrawPlan, chain_draws,
+from mcmc_tpu_torch.ops.chain_draws import (MAX_ENTRIES, SLOTS, DrawEntry,
+                                            DrawPlan, chain_draws,
+                                            chain_draws_info,
                                             chain_draws_reference, entry)
 from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
                                              batched_normal_keyed,
@@ -601,6 +603,52 @@ def test_chain_draws_kernel_bitwise(cuda_device, plan, step):
     for name in want:
         assert torch.equal(got[name], want[name]), name
         assert torch.equal(got[name][5:6], one[name]), name
+
+
+def _many_entries():
+    """MAX_ENTRIES entries of every kind, at counts that are multiples of
+    neither 4 nor 2 as well as of both."""
+    kinds = ("uniform", "index", "normal")
+    return tuple(DrawEntry(name=f"e{k}", slot=40 + k, kind=kinds[k % 3],
+                           count=(1, 7, 13, 64, 99)[k % 5] * (1 + k % 4),
+                           n=(k + 3) * 1009 if k % 3 == 1 else 0,
+                           lo=-k if k % 3 == 1 else 0)
+                 for k in range(MAX_ENTRIES))
+
+
+# (plan, chains): each grid of the kernel, the flat one (up to a wave of
+# Philox calls) and the tiled one (past it), with partial last CTAs
+DRAW_LAYOUTS = {
+    "one-chain": ("sgs", 1),
+    "odd-counts": ("odd", 333),
+    "flat-partial-cta": ("crf", 769),
+    "dropout-tiled": ("sgs", 300),
+    "tiled-odd-chains": ("sgs", 513),
+    "max-entries": ("many", 3),
+    "max-entries-tiled": ("many", 800),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", list(DRAW_LAYOUTS))
+@pytest.mark.parametrize("step", [3, (1 << 32) + 5, (1 << 40) + 1])
+def test_chain_draws_kernel_layouts(cuda_device, layout, step):
+    """Every value bitwise the plain version's on each grid of the kernel:
+    one chain, counts of neither 4 nor 2, the dropout plan, MAX_ENTRIES
+    entries, chain counts that leave the last CTA or tile partial, steps
+    past 2^32; the launch takes the grid its number of calls calls for."""
+    name, n = DRAW_LAYOUTS[layout]
+    plan = DrawPlan(_many_entries() if name == "many"
+                    else DRAW_PLANS[name])
+    s = _streams(list(range(7, 7 + n)), step, cuda_device)
+    got = plan.views(*chain_draws(s.keys, s.step, plan))
+    want = plan.views(*chain_draws_reference(s.keys, s.step, plan))
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    info = chain_draws_info(n, plan.calls)
+    assert info["calls_a_thread"] == (2 if n * plan.calls > 132 * 2048
+                                      else 1), info
+    assert info["resident_ctas_per_sm"] > 0
 
 
 @pytest.mark.cuda

@@ -78,6 +78,32 @@ def test_file_imports_no_jax(path):
     assert not roots & {"jax", "jaxlib", "mcmc_tpu"}, (path, roots)
 
 
+PACKAGE_ONLY = """
+import sys
+import mcmc_tpu_torch
+print(",".join(n for n in ("ops", "models", "geostats", "parallel", "io",
+                           "utils") if not hasattr(mcmc_tpu_torch, n)))
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "mcmc_tpu"))))
+"""
+
+
+def test_package_import_binds_the_subpackages_without_jax():
+    """``import mcmc_tpu_torch`` alone binds the reference's subpackages
+    (``mcmc_tpu/__init__.py:30``: ops, models, geostats, parallel, io,
+    utils) and still loads neither JAX nor the JAX package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", PACKAGE_ONLY], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    unbound, bad = out.stdout.split("\n")[:2]
+    assert unbound == "", f"not bound: {unbound}"
+    assert bad == "", f"imported: {bad}"
+
+
 NEW_MODULES = """
 import sys
 import mcmc_tpu_torch

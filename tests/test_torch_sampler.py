@@ -6,6 +6,8 @@ diagnostics run on host numpy and are held against
 ``mcmc_tpu.parallel.diagnostics`` on the same numpy traces to rtol 1e-5.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -274,3 +276,83 @@ def test_entry_points_run_on_the_card_unless_asked(chains, monkeypatch):
     assert sampler.device == torch.device("cpu")
     _, tr = sampler.run(sampler.init(seeds=1), 3, progress=False)
     assert tr["loss"].shape == (2, 3)
+
+
+def _runner_chain(family):
+    """A small chain of the family, for the functional runners."""
+    from tests.test_torch_chain_sgs import chain_pair
+
+    p = make_synthetic_problem(H=48, W=48)
+    if family == "crf":
+        return _port_chain(p, _jax_chain(p, "crf_matern"))
+    case = "no_transform" if family == "sgs_plain" else "transform_detrend"
+    return chain_pair(p, case, neighbors=16, radius=10e3)[1]
+
+
+def _copy(states):
+    return dataclasses.replace(states, **{
+        f.name: getattr(states, f.name).clone()
+        for f in dataclasses.fields(states)})
+
+
+@pytest.mark.parametrize("seeding", ["int", "list"])
+@pytest.mark.parametrize("family", ["crf", "sgs"])
+def test_run_chains_is_the_sampler_segment(family, seeding):
+    """``parallel.run_chains`` on the sampler's static, consts and a fresh
+    stream of the same seed gives ``run_segment``'s states and traces bit
+    for bit, beds included; the stream ends at the same step."""
+    from mcmc_tpu_torch.parallel import run_chains
+    from mcmc_tpu_torch.utils.rng import PerChainStreams, make_generator
+
+    sampler = MultiChainSampler(_runner_chain(family), 3, device="cpu")
+    seeds = 5 if seeding == "int" else [5, 6, 7]
+    states = sampler.init(seeds=seeds)
+    start = _copy(states)
+    got_states, got = sampler.run_segment(states, 4, save_beds=True)
+    rng = (make_generator(5, "cpu") if seeding == "int"
+           else PerChainStreams.from_seeds(seeds, "cpu"))
+    want_states, want = run_chains(sampler.static, sampler.consts, start, 4,
+                                   True, rng=rng)
+    assert set(got) == set(want) and "bed" in got
+    for k in want:
+        assert got[k].shape[:2] == (4, 3), k
+        assert torch.equal(got[k].nan_to_num(), want[k].nan_to_num()), k
+    for f in dataclasses.fields(want_states):
+        assert torch.equal(getattr(got_states, f.name),
+                           getattr(want_states, f.name)), f.name
+    if seeding == "list":
+        assert torch.equal(sampler.generator.step, rng.step)
+
+
+@pytest.mark.parametrize("family", ["crf", "sgs", "sgs_plain"])
+def test_init_states_is_the_sampler_init(family):
+    """``parallel.init_states`` equals ``sampler.init`` bit for bit, on the
+    chain's own bed and on three per-chain beds (an SGS chain's
+    preprocessed, its z-plane from the host transform, or the detrended
+    bed itself for a chain without a transform).  An SGS chain's call
+    without its z-plane raises, whether the chain transforms or not."""
+    from mcmc_tpu_torch.parallel import init_states
+
+    chain = _runner_chain(family)
+    sampler = MultiChainSampler(chain, 3, device="cpu")
+    full = chain.initial_bed
+    beds = np.stack([full - 2.0 * i for i in range(3)]).astype(np.float32)
+    if family == "crf":  # (sampler's initial_beds, init_states' args)
+        cases = ((None, full, 3, None), (beds, beds, None, None))
+    else:
+        pre = chain.preprocess_beds(beds)
+        own = chain._initial_detrended
+        if family == "sgs":
+            z_own, z_pre = chain._initial_z, chain.host_transform(pre)
+        else:
+            assert chain._initial_z is None
+            z_own, z_pre = own, pre
+        cases = ((None, own, 3, z_own), (beds, pre, None, z_pre))
+        with pytest.raises(ValueError, match="needs z0"):
+            init_states(own, sampler.consts, 3)
+    for initial, bed, n, z0 in cases:
+        got = sampler.init(initial_beds=initial, seeds=1)
+        want = init_states(bed, sampler.consts, n, z0=z0)
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name),
+                               getattr(want, f.name)), f.name

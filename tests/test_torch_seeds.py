@@ -16,6 +16,10 @@ versions the CUDA kernels are held to on the card:
   to rtol 1e-6: ``torch.fft.irfft2`` on the CPU is not batch-invariant
   (a batch of 3 and a batch of 1 round ~1e-8 apart), and the loss ledger
   carries that into its last bits;
+- the masked square sums of the SGS step's loss delta
+  (``ops/physics.masked_sq_sum``), the op that made chain 0's traces
+  depend on the batch on the card, give each chain of a batch of 3 the
+  bits it gets alone;
 - a list-seeded checkpoint resumes bit for bit, and is refused by an
   int-seeded sampler and the other way round;
 - the drivers and the CLI with a seed list give results of the JAX
@@ -206,6 +210,21 @@ def test_draws_depend_on_the_chain_alone():
     assert not torch.equal(full["noise"][0], full["noise"][1])
 
 
+@pytest.mark.parametrize("entries,n_chains", [
+    ((entry("u", "uniform", 2 ** 31),), 1),         # 2^31 floats a chain
+    ((entry("cidx", "index", 2 ** 31, n=7),), 1),   # 2^31 ints a chain
+    ((entry("noise", "normal", 4 * 2 ** 25),), 64),  # 2^31 calls a launch
+])
+def test_plans_past_the_kernel_limits_are_refused(entries, n_chains):
+    """A plan whose chain holds 2^31 values of a type, or whose launch
+    makes 2^31 calls, is refused before anything is drawn, on either
+    device: the kernel indexes a chain's columns and a launch's calls in
+    int32."""
+    s = _streams(list(range(n_chains)))
+    with pytest.raises(ValueError, match="the kernel takes at most"):
+        chain_draws(s.keys, s.step, DrawPlan(entries))
+
+
 def test_dispatchers_run_the_plain_versions_on_the_cpu():
     s = _streams(SEEDS, 3)
     before = (chain_draws.launches, batched_normal_keyed.launches)
@@ -334,6 +353,73 @@ def test_chain_i_depends_on_its_own_seed_alone(problem, family):
     assert not np.array_equal(tr3["block"][0], tr3["block"][1])
 
 
+@pytest.mark.parametrize("hw", [(36, 36), (45, 67), (70, 130)])
+def test_masked_square_sums_are_batch_invariant(hw):
+    """``masked_sq_sum`` of a batch of 3 against each chain alone,
+    bitwise: each row summed in an order set by its length alone
+    (``ops/physics.row_sum``), rows past 63 cells folded by 32 first.  On
+    the card a one-pass ``sum`` over both axes orders a batch of 512 and a
+    batch of 1 differently (chip_smoke.py's [independence]); here the
+    batch-3 / batch-1 pair and the fold hold the form.  The SGS stage
+    probe names the first stage where two batches' chain 0 differ."""
+    from mcmc_tpu_torch.ops.physics import masked_sq_sum, row_sum
+    from mcmc_tpu_torch.testing import first_batch_dependence
+
+    gen = torch.Generator().manual_seed(hw[0])
+    res = torch.randn((3,) + hw, generator=gen) * 50.0
+    res[0, 0, 0] = float("nan")  # a NaN residual counts zero
+    mask = torch.rand((3,) + hw, generator=gen) < 0.4
+    many = masked_sq_sum(res, mask)
+    for i in range(3):
+        one = masked_sq_sum(res[i:i + 1], mask[i:i + 1])
+        assert torch.equal(many[i:i + 1], one), i
+    want = torch.where(mask & ~torch.isnan(res), res.double() ** 2,
+                       0.0).sum(dim=(-2, -1))
+    torch.testing.assert_close(many.double(), want, rtol=1e-6, atol=0.0)
+    x = torch.arange(130, dtype=torch.float32).expand(2, 130)
+    assert torch.equal(row_sum(x), torch.full((2,), 8385.0))
+    stages = {"a": many, "b": many + 1.0}
+    assert first_batch_dependence(stages, stages) is None
+    assert first_batch_dependence(
+        stages, {"a": many, "b": many + 2.0}) == "b"
+
+
+def test_sgs_step_stages_follow_the_step(problem):
+    """The SGS stage probe (``testing.sgs_step_stages``) takes the step
+    apart without writing the state: its K-nearest selection is
+    ``k_nearest_packed``'s, and its decision, loss and written windows
+    those of the step it mirrors, bitwise, on a 3-chain list-seeded farm
+    of the CPU."""
+    from mcmc_tpu_torch.testing import sgs_step_stages
+
+    static, consts = FAMILIES["sgs"](problem).build("cpu")
+    sampler = MultiChainSampler(FAMILIES["sgs"](problem), 3, device="cpu")
+    state = sampler.init(seeds=SEEDS)
+    for _ in range(3):
+        d = sgs.draw(sampler.generator, static, consts, 3)
+        before = state.fields.clone()
+        st = sgs_step_stages(static, consts, state, d)
+        assert torch.equal(state.fields, before)
+        state, tr = sgs.make_sgs_kernel(static)(
+            consts, state, d.cx, d.cy, d.bsx, d.bsy, d.noise, d.drop_u, d.u)
+        assert torch.equal(st["loss, decision"][:, 0], state.loss_mc)
+        assert torch.equal(st["loss, decision"][:, 2],
+                           tr["step"].to(torch.float32))
+        written = st["loss, decision"][:, 3] > 0
+        geo = sgs.window_start(static, d.cx, d.cy, d.bsx, d.bsy)
+        after = sgs.window_extract_reference(
+            consts.stacked, state.fields, geo.sx32, geo.sy32, static.SB)
+        new_w = st["new window (residual patch)"]
+        assert torch.equal(after[written, sgs.N_CONST:],
+                           new_w[written])
+        K = static.K
+        assert torch.equal(st["packed idx, sel"][:, :K],
+                           torch.clamp(st["searchsorted"],
+                                       max=static.SB ** 2 - 1))
+        sampler.generator.advance()
+    assert int(state.accepted.sum()) > 0
+
+
 def test_crf_block_params_come_from_the_plan(problem):
     """A list-seeded CRF step's size index and variogram parameters are
     its draw plan's values, mapped as a generator's uniforms are
@@ -361,9 +447,9 @@ def test_crf_block_params_come_from_the_plan(problem):
     # a generator's uniforms, in the order field_params asks for them
     gen = make_generator(4, "cpu")
     got = sample_field_params(
-        gen, 3, arrays.scale_min, arrays.scale_max, arrays.nugget_max,
+        gen, arrays.scale_min, arrays.scale_max, arrays.nugget_max,
         arrays.range_min_x, arrays.range_max_x, arrays.range_min_y,
-        arrays.range_max_y, False, "cpu")
+        arrays.range_max_y, False, n=3, device="cpu")
     gen = make_generator(4, "cpu")
     u = {k: torch.rand((3,), generator=gen)
          for k in ("scale", "nugget", "range_x", "range_y")}

@@ -161,6 +161,26 @@ def test_crf_weight_and_distance_match_jax():
     assert float(got[0].min()) == 0.0
 
 
+@pytest.mark.parametrize("max_dist", [5e3, 40e3])
+def test_logistic_weight_matches_jax(max_dist):
+    """``ops.logistic_weight`` on a float32 tensor against the JAX
+    function on the same values, to 1e-6 relative to the map's scale L
+    (an exp that may round an ulp apart; where the offset cancels the
+    logistic, an ulp of L is far more than 1e-6 of the difference),
+    distances below and past ``max_dist`` (clamped)."""
+    from mcmc_tpu_torch.ops import logistic_weight
+
+    d32 = np.random.default_rng(6).uniform(0.0, 20e3, (30, 40)).astype(
+        np.float32)
+    got = logistic_weight(torch.from_numpy(d32), 2.0, 0.3, 6.0, 1.0,
+                          max_dist)
+    want = jlog.logistic_weight(jnp.asarray(d32), 2.0, 0.3, 6.0, 1.0,
+                                max_dist)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6 * 2.0)
+
+
 @pytest.mark.parametrize("nugget_max", [0.0, 25.0])
 def test_finish_block_matches_jax_draw_block_math(nugget_max):
     """The port's finishing step (standardize over the block, scale, the
@@ -209,7 +229,8 @@ def test_half_spectrum_noise_is_standard_complex_normal():
 def test_sample_field_params_ranges(isotropic):
     gen = make_generator(1, CPU)
     scale, nug, rx, ry = tsp.sample_field_params(
-        gen, 2000, 30.0, 90.0, 4.0, 1e3, 5e3, 2e3, 3e3, isotropic, CPU)
+        gen, 30.0, 90.0, 4.0, 1e3, 5e3, 2e3, 3e3, isotropic, n=2000,
+        device=CPU)
     assert float(scale.min()) >= 10.0 and float(scale.max()) <= 30.0
     assert abs(float(scale.mean()) - 20.0) < 0.5
     assert float(nug.min()) >= 0.0 and float(nug.max()) <= 4.0
@@ -228,8 +249,8 @@ def test_draw_block_is_standardized_and_scaled():
     static, arrays = trf.build_randfield(*_configs(), device=CPU)
     arrays = dataclasses.replace(arrays,
                                  edge_masks=torch.ones_like(arrays.edge_masks))
-    f, size_idx, w, h = trf.draw_block(make_generator(2, CPU), 400, static,
-                                       arrays)
+    f, size_idx, w, h = trf.draw_block(make_generator(2, CPU), static,
+                                       arrays, n=400)
     B = static.B
     stds = []
     for i in range(400):
@@ -255,7 +276,7 @@ def test_draws_correlogram_matches_reference(model, smoothness):
     n, B, R = 300, 32, 4e3
     gen = make_generator(3, CPU)
     r = torch.full((n,), R)
-    raw = tsp.spectral_field(gen, n, (B, B), RES, model, r, r, smoothness)
+    raw = tsp.spectral_field(gen, (B, B), RES, model, r, r, smoothness)
     full = torch.ones((B, B), dtype=torch.bool)
     port = tsp.standardize_masked(raw, full).double().numpy()
     rng = np.random.default_rng(3)
@@ -276,9 +297,9 @@ def test_draws_correlogram_matches_reference(model, smoothness):
 
 def test_same_seed_same_draws():
     static, arrays = trf.build_randfield(*_configs(), device=CPU)
-    a = trf.draw_block(make_generator(9, CPU), 3, static, arrays)
-    b = trf.draw_block(make_generator(9, CPU), 3, static, arrays)
-    c = trf.draw_block(make_generator(10, CPU), 3, static, arrays)
+    a = trf.draw_block(make_generator(9, CPU), static, arrays, n=3)
+    b = trf.draw_block(make_generator(9, CPU), static, arrays, n=3)
+    c = trf.draw_block(make_generator(10, CPU), static, arrays, n=3)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not torch.equal(a[0], c[0])

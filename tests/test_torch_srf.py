@@ -338,9 +338,9 @@ def test_randfield_srf_fields_follow_the_jax_recipe():
     cfg = rf.config
     gen = make_generator(9, CPU)
     scale, nug, rx, ry = trf.sample_field_params(
-        gen, 1, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
+        gen, cfg.scale_min, cfg.scale_max, cfg.nugget_max,
         cfg.range_min_x, cfg.range_max_x, cfg.range_min_y, cfg.range_max_y,
-        True, CPU)
+        True, n=1, device=CPU)
     u, theta, z1, z2, _ = tsrf.draw_srf(gen, 1, True, CPU)
     noise = torch.randn((1, 20, 20), generator=gen)
     port_kv = tsrf.sample_wavevectors(u, theta, "Matern", rx, ry, 1.3)
