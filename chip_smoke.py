@@ -126,7 +126,7 @@ line or more each:
    the card and on the CPU within 5e-2 m; the beds as a 2-chain CRF
    farm's initial beds for 50 steps; seconds a bed, host ms a chunk and
    the device-idle share of 20 profiled chunks;
-19. the gstools-SRF proposal method (``[srf]``, last): the SRF kernel
+19. the gstools-SRF proposal method (``[srf]``): the SRF kernel
    (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes as a
    separable product in 3xTF32 on the tensor cores) at the CRF headline
    (768 chains x 80 x 80, Matern), with anisotropic Exponential ranges
@@ -148,7 +148,30 @@ line or more each:
    50 steps); the SRF farm through ``mcmc_tpu_torch.cli.main``, 200
    iterations resumed to 300, bitwise against 300 straight; and
    ``RandField.get_random_field`` at 512^2 by the SRF method (seconds a
-   field, the same seed's bits again).
+   field, the same seed's bits again);
+20. multi-GPU ranks (``[dist]``, last), each part a
+   ``python -m torch.distributed.run --standalone`` launch of this script
+   as ``--dist-worker`` (or of the CLI) under a timeout, a failed rank
+   failing the phase: (a) one NCCL rank, the CRF headline (768 chains x
+   512^2, 200 steps) through ``MultiChainSampler(mesh=
+   global_chains_mesh())``, traces and final state bitwise the same farm
+   without a mesh; (b) two gloo ranks sharing card 0
+   (``local_device_ids=[0]``), one launch for (b) and (c): the CRF
+   headline int-seeded and with 768
+   seeds, and the SGS headline (512 chains, 2.15 GB of state) int-seeded,
+   200 steps each, the gathered traces bitwise the one-rank farm's and
+   every chain's final state by bit checksums, each rank's us a step, the
+   gather's ms a segment and its kernels once a step; (c) the row-sharded
+   grid on the same two ranks: ``make_sharded_crf_chain`` on the native
+   900 x 900 problem for 1000 steps and ``make_sharded_crf_chains`` at 768
+   chains x 512^2 for 100, each against grid 1 on the card under the JAX
+   package's gates (accepted steps equal, loss rtol 1e-5, bed rtol 1e-5 /
+   atol 1e-3), with the collectives a step and us a step; (d) ``torchrun
+   --nproc-per-node 2 -m mcmc_tpu_torch`` on a spherical SGS config (64
+   chains) to 400, re-invoked to 600 on 2 ranks (the
+   ``checkpoint_600.proc{0,1}of2.npz`` set and its ``.ok`` marker), then
+   to 800 on 1 rank, bitwise an uninterrupted 1-rank 800.  Each part's
+   seconds are printed.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -166,7 +189,7 @@ same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger;
 the SRF kernel's its 3xTF32 products at 495 TFLOP/s)
 and, where one PyTorch call computes the same function, that call's
-time.  Phases 16-19 run last and count their own launches, so the line's
+time.  Phases 16-20 run last and count their own launches, so the line's
 ``launches`` are those of the paths above (the SRF kernel's its own).  The last line is the JSON
 contract ``{"ok": true, "device": ...}``.
 """
@@ -3307,6 +3330,417 @@ def phase_srf(p, card):
     return row, launches
 
 
+# -- [dist]: multi-GPU ranks (phase 20) --------------------------------------
+
+DIST_STEPS = 200         # [dist] (a), (b): steps of each farm
+DIST_SEGMENT = 100       # [dist]: segment size of those farms
+DIST_GRID = {"chain": (1000, 900), "chains": (100, GRID)}  # steps, side
+DIST_GRID_SEED = 5
+DIST_ENTRY_ITERS = (400, 600, 800)  # [dist] (d): 2 ranks, 2 ranks, 1 rank
+DIST_ENTRY_CHAINS = 64
+DIST_TIMEOUT = 300       # s, each torchrun launch
+GRID_RTOL, GRID_ATOL = 1e-5, 1e-3  # tests/test_parallel.py:277-283
+DIST_FARMS = (("crf", "int"), ("crf", "list"), ("sgs", "int"))
+
+
+def _dist_kernels(family):
+    """The kernel wrappers a family's farm launches once a step."""
+    if family == "crf":
+        from mcmc_tpu_torch.ops.chain_draws import chain_draws
+        from mcmc_tpu_torch.ops.noise_kernel import (batched_normal,
+                                                     batched_normal_keyed)
+        from mcmc_tpu_torch.ops.window_kernel import fused_window_update
+
+        return (fused_window_update, batched_normal, batched_normal_keyed,
+                chain_draws)
+    from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.lut_kernel import lut_interp
+    from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
+                                                      window_writeback)
+
+    return (window_extract, mix_masked_cg, lut_interp, window_writeback)
+
+
+def _bit_sums(fields):
+    """(N, 2) int64 checksums of each chain's bits: the sum of its float32
+    bit patterns, and their sum weighted by position.  Equal sums on
+    every chain stand for a bitwise match without moving 2 GB of state
+    to the host."""
+    import torch
+
+    out = []
+    for part in fields.split(32):
+        bits = part.reshape(part.shape[0], -1).view(torch.int32).to(
+            torch.int64)
+        w = torch.arange(bits.shape[1], device=bits.device) % 65521 + 1
+        out.append(torch.stack([bits.sum(1), (bits * w).sum(1)], 1))
+    return torch.cat(out).cpu().numpy()
+
+
+def _dist_farm(p, family, seeding, mesh=None, use_mesh=True):
+    """One farm of the [dist] phase, DIST_STEPS steps in segments of
+    DIST_SEGMENT: (sampler, final states, traces, seconds, launches)."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+
+    chain = make_chain(p) if family == "crf" else make_sgs_chain(p)
+    n = N_CHAINS if family == "crf" else SGS_CHAINS
+    sampler = MultiChainSampler(chain, n, mesh=mesh, use_mesh=use_mesh,
+                                device=DEVICE)
+    states = sampler.init(seeds=0 if seeding == "int" else _seed_list(n))
+    kernels = _dist_kernels(family)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, traces = sampler.run(states, DIST_STEPS + 1,
+                                 segment_size=DIST_SEGMENT, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (sampler, states, traces, seconds,
+            {k.__name__: k.launches for k in kernels})
+
+
+def _gather_ms(sampler):
+    """ms to gather one segment's traces over the ranks, on buffers of a
+    segment's shapes (the gathers ``run`` makes at a segment's end)."""
+    import torch
+
+    from mcmc_tpu_torch.parallel.sampler import trace_buffers
+
+    bufs = trace_buffers(sampler.static, sampler.rows[1] - sampler.rows[0],
+                         DIST_SEGMENT, sampler.device)
+    for v in bufs.values():
+        v.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for v in bufs.values():
+        sampler.gather(v, dim=1)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _count_collectives():
+    """Count this process's all_gather / all_reduce calls (the grid's two
+    collectives) in a dict, by wrapping torch.distributed's functions."""
+    import torch.distributed as dist
+
+    counts = {"all_gather": 0, "all_reduce": 0}
+    for name in counts:
+        fn = getattr(dist, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+
+        setattr(dist, name, counted)
+    return counts
+
+
+def _grid_run(kind, mesh, out=None):
+    """``make_sharded_crf_chain`` on the native 900 x 900 problem, or
+    ``make_sharded_crf_chains`` at 768 chains x 512^2, on ``mesh``: (bed
+    or beds of this rank's rows, losses, steps, seconds)."""
+    import torch
+
+    from mcmc_tpu_torch.parallel import (make_sharded_crf_chain,
+                                         make_sharded_crf_chains,
+                                         shard_grid_arrays)
+    from mcmc_tpu_torch.parallel.grid_sharded import shard_crf_consts
+
+    steps, side = DIST_GRID[kind]
+    p = build_problem(H=side, W=side)
+    static, consts = make_chain(p).build(DEVICE)
+    local = shard_crf_consts(mesh, consts)
+    bed = shard_grid_arrays(mesh, p["initial_bed"].astype(np.float32))
+    gen = torch.Generator(device=mesh.device).manual_seed(DIST_GRID_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if kind == "chain":
+        bed, losses, acc = make_sharded_crf_chain(mesh, static)(
+            bed, local, steps, rng=gen)
+    else:
+        beds = bed.expand(N_CHAINS, -1, -1).contiguous()
+        bed, losses, acc = make_sharded_crf_chains(mesh, static)(
+            beds, local, steps, rng=gen)
+    torch.cuda.synchronize()
+    return bed, losses, acc, time.perf_counter() - t0
+
+
+def _dist_worker(case, out):
+    """One rank of a [dist] launch (``chip_smoke.py --dist-worker CASE
+    OUT`` under torchrun); writes its results into OUT."""
+    import torch
+
+    from mcmc_tpu_torch.parallel import (chains_grid_mesh,
+                                         global_chains_mesh,
+                                         initialize_distributed)
+    from mcmc_tpu_torch.parallel.distributed import world
+
+    out = Path(out)
+    if case == "nccl":
+        initialize_distributed()
+        assert torch.distributed.get_backend() == "nccl"
+    else:  # every rank on card 0, over gloo
+        initialize_distributed(local_device_ids=[0], backend="gloo")
+    rank, size = world()
+    p = build_problem()
+    result = {"rank": rank, "world": size}
+    if case == "nccl":
+        # the mesh-less farm first, to warm the process (cuFFT plans,
+        # kernel libraries), then the farm on the mesh and again without
+        mesh = global_chains_mesh()
+        runs = [_dist_farm(p, "crf", "int", mesh=m, use_mesh=False)
+                for m in (None, mesh, None)]
+        (s1, st1, tr1, sec1, l1), (_, st2, tr2, sec2, _) = runs[1:]
+        result.update(
+            traces_same=all(np.array_equal(tr1[k], tr2[k], equal_nan=True)
+                            for k in tr1),
+            beds_same=bool(torch.equal(st1.fields, st2.fields)),
+            us_step=[sec1 / DIST_STEPS * 1e6, sec2 / DIST_STEPS * 1e6],
+            launches=l1, mesh=s1.mesh.shape)
+    else:  # "gloo": (b)'s farms, then (c)'s grid, in one launch
+        for family, seeding in DIST_FARMS:
+            sampler, states, traces, sec, launches = _dist_farm(
+                p, family, seeding)
+            tag = f"{family}_{seeding}"
+            result[tag] = {"us_step": sec / DIST_STEPS * 1e6,
+                           "gather_ms": _gather_ms(sampler),
+                           "launches": launches, "rows": sampler.rows}
+            np.save(out / f"{tag}.sums.rank{rank}.npy",
+                    _bit_sums(states.fields))
+            if rank == 0:
+                np.savez(out / f"{tag}.traces.npz", **traces)
+            del sampler, states
+            torch.cuda.empty_cache()
+        counts = _count_collectives()
+        for kind in DIST_GRID:
+            mesh = chains_grid_mesh(1, size)
+            before = dict(counts)
+            bed, losses, acc, sec = _grid_run(kind, mesh)
+            # the initial residual and loss make one of each
+            result[kind] = {
+                "us_step": sec / DIST_GRID[kind][0] * 1e6,
+                "collectives_per_step": {
+                    k: (counts[k] - before[k] - 1) / DIST_GRID[kind][0]
+                    for k in counts}}
+            np.save(out / f"grid_{kind}.bed.rank{rank}.npy",
+                    bed.cpu().numpy())
+            np.savez(out / f"grid_{kind}.rank{rank}.npz",
+                     losses=losses.cpu().numpy(), steps=acc.cpu().numpy())
+    (out / f"{case}.rank{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def _torchrun(n, args, label):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n
+    ARGS`` from the checkout, under a timeout; its output, or a raise
+    with its tail if a rank failed."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT, check=False)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"[dist] {label}: torchrun exited "
+                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    return proc.stdout, seconds
+
+
+def _worker_results(out, case, n):
+    return [json.loads((out / f"{case}.rank{k}.json").read_text())
+            for k in range(n)]
+
+
+def _dist_nccl(out, card):
+    """(a) one NCCL rank: the CRF headline through a one-rank mesh against
+    the same farm without one, bitwise."""
+    _, seconds = _torchrun(1, [str(ROOT / "chip_smoke.py"), "--dist-worker",
+                               "nccl", str(out)], "(a)")
+    r = _worker_results(out, "nccl", 1)[0]
+    ok = r["traces_same"] and r["beds_same"]
+    print(f"[dist] (a) 1 NCCL rank, CRF {N_CHAINS} x {GRID}^2, {DIST_STEPS} "
+          f"steps through MultiChainSampler(mesh=global_chains_mesh()) "
+          f"{r['mesh']}: traces bitwise the mesh-less farm's "
+          f"{r['traces_same']}, final state {r['beds_same']} | "
+          f"{r['us_step'][0]:.1f} us/step on the mesh, "
+          f"{r['us_step'][1]:.1f} without (after a warm-up farm) | "
+          f"launches {r['launches']} | launch {seconds:.1f} s ({card})",
+          flush=True)
+    if not ok:
+        raise RuntimeError("(a) the one-rank mesh departs from the farm")
+    if r["launches"]["fused_window_update"] != DIST_STEPS:
+        raise RuntimeError(f"(a) launches {r['launches']}")
+
+
+def _dist_farms(p, out, ranks, card):
+    """(b) two gloo ranks on card 0 (``ranks``: their results): each
+    farm's gathered traces and every chain's final state against the
+    one-rank farm, bitwise."""
+    import torch
+
+    for family, seeding in DIST_FARMS:
+        tag = f"{family}_{seeding}"
+        _, states, traces, sec, _ = _dist_farm(p, family, seeding,
+                                               use_mesh=False)
+        sums = _bit_sums(states.fields)
+        del states
+        torch.cuda.empty_cache()
+        with np.load(out / f"{tag}.traces.npz") as z:
+            same = {k: bool(np.array_equal(z[k], traces[k], equal_nan=True))
+                    for k in traces}
+        got = np.concatenate([np.load(out / f"{tag}.sums.rank{k}.npy")
+                              for k in range(2)])
+        state_same = bool(np.array_equal(got, sums))
+        steps = DIST_STEPS
+        runs = [r[tag] for r in ranks]
+        launches_ok = all(
+            n in (0, steps) and (n == steps or name in (
+                "batched_normal", "batched_normal_keyed", "chain_draws"))
+            for r in runs for name, n in r["launches"].items())
+        print(f"[dist] (b) 2 gloo ranks on card 0, {family} {seeding}-seeded "
+              f"{traces['loss'].shape[0]} chains x {GRID}^2, {steps} steps: "
+              f"gathered traces bitwise the 1-rank farm's {same}, final "
+              f"states (per-chain bit checksums) {state_same} | rank us/step "
+              f"{[round(r['us_step'], 1) for r in runs]} (1 rank alone "
+              f"{sec / steps * 1e6:.1f}) | gather ms a segment "
+              f"{[round(r['gather_ms'], 2) for r in runs]} | launches "
+              f"{[r['launches'] for r in runs]} ({card})", flush=True)
+        if not (all(same.values()) and state_same and launches_ok):
+            raise RuntimeError(f"(b) the 2-rank {tag} farm departs from the "
+                               "1-rank farm")
+
+
+def _dist_grid(out, ranks, card):
+    """(c) the row-sharded grid on 2 gloo ranks of card 0 (``ranks``:
+    their results) against grid 1 on the card, under the JAX package's
+    gates."""
+    import torch
+
+    from mcmc_tpu_torch.parallel import chains_grid_mesh
+
+    for kind, (steps, side) in DIST_GRID.items():
+        bed1, loss1, acc1, sec1 = _grid_run(
+            kind, chains_grid_mesh(1, 1, device=DEVICE))
+        loss1, acc1 = loss1.cpu().numpy(), acc1.cpu().numpy()
+        half = side // 2
+        errs, beds_ok, same_steps, loss_rel = [], True, True, 0.0
+        bitwise = True
+        for k in range(2):
+            bed = torch.from_numpy(np.load(
+                out / f"grid_{kind}.bed.rank{k}.npy")).to(bed1.device)
+            with np.load(out / f"grid_{kind}.rank{k}.npz") as z:
+                losses, acc = z["losses"], z["steps"]
+            want = bed1[..., k * half:(k + 1) * half, :]
+            errs.append(float((bed - want).abs().max()))
+            beds_ok &= bool(torch.allclose(bed, want, rtol=GRID_RTOL,
+                                           atol=GRID_ATOL))
+            bitwise &= bool(torch.equal(bed, want)
+                            and np.array_equal(losses, loss1))
+            del bed, want
+            same_steps &= bool(np.array_equal(acc, acc1))
+            loss_rel = max(loss_rel, float(np.max(np.abs(losses - loss1)
+                                                  / np.abs(loss1))))
+        del bed1
+        torch.cuda.empty_cache()
+        runs = [r[kind] for r in ranks]
+        what = "1 chain" if kind == "chain" else f"{N_CHAINS} chains"
+        print(f"[dist] (c) {kind}: {what} x {side}^2, mesh (1 x 2), {steps} "
+              f"steps: accepted steps equal "
+              f"{same_steps} ({int(acc1.sum())} accepted), loss max rel "
+              f"{loss_rel:.3e} (rtol {GRID_RTOL:g}), bed max abs "
+              f"{errs} within rtol {GRID_RTOL:g} / atol "
+              f"{GRID_ATOL:g}: {beds_ok} (bed and loss bitwise: {bitwise})"
+              f" | collectives a step "
+              f"{runs[0]['collectives_per_step']} | rank us/step "
+              f"{[round(r['us_step'], 1) for r in runs]} (grid 1 "
+              f"{sec1 / steps * 1e6:.1f}) ({card})", flush=True)
+        if not (same_steps and loss_rel <= GRID_RTOL and beds_ok
+                and acc1.sum() > 0):
+            raise RuntimeError(f"(c) the sharded {kind} departs from grid 1")
+
+
+def _dist_entry(p, out, card):
+    """(d) the CLI under torchrun: 2 ranks to 400, 2 ranks to 600, then 1
+    rank to 800, bitwise an uninterrupted 1-rank 800."""
+    first, second, total = DIST_ENTRY_ITERS
+    _write_dataset(p, out / "dataset.npz")
+
+    def config(n_iter, name):
+        cfg = _sgs_config(n_iter, name)
+        cfg["farm"].update(n_chains=DIST_ENTRY_CHAINS,
+                           checkpoint_every=ENTRY_SEGMENT)
+        path = out / f"{name}_{n_iter}.json"
+        path.write_text(json.dumps(cfg))
+        return path
+
+    times = []
+    for n_iter in (first, second):
+        _, seconds = _torchrun(2, ["-m", "mcmc_tpu_torch",
+                                   str(config(n_iter, "resumed")),
+                                   "--quiet", "--backend", "gloo", "--card",
+                                   "0"], "(d)")
+        times.append(seconds)
+    run_dir = out / "resumed" / "LargeScaleChain" / "root" / "SmallScaleChain"
+    names = {f.name for f in run_dir.iterdir()}
+    shards = {f"checkpoint_{second}.proc0of2.npz",
+              f"checkpoint_{second}.proc1of2.npz", f"checkpoint_{second}.ok"}
+    t0 = time.perf_counter()
+    _cli_run(out, json.loads(config(total, "resumed").read_text()))
+    times.append(time.perf_counter() - t0)
+    _cli_run(out, json.loads(config(total, "straight").read_text()))
+    same = {}
+    with np.load(out / "resumed_hist.npz") as a, \
+            np.load(out / "straight_hist.npz") as b:
+        for key in a.files:
+            same[key] = bool(np.array_equal(a[key], b[key], equal_nan=True))
+        shape = a["loss"].shape
+    same["final_beds"] = bool(np.array_equal(
+        np.load(out / "resumed_beds.npy"), np.load(out / "straight_beds.npy")))
+    print(f"[dist] (d) torchrun --nproc-per-node 2 -m mcmc_tpu_torch: SGS "
+          f"spherical {DIST_ENTRY_CHAINS} chains x {GRID}^2 to {first} "
+          f"({times[0]:.1f} s), to {second} ({times[1]:.1f} s) on 2 ranks, "
+          f"then to {total} on 1 rank ({times[2]:.1f} s) | the 2-rank set "
+          f"{sorted(shards & names)} | == uninterrupted 1-rank {total}, "
+          f"bitwise: {same} ({card})", flush=True)
+    if not shards <= names:
+        raise RuntimeError(f"(d) no 2-rank checkpoint set: {sorted(names)}")
+    if not all(same.values()) or shape != (DIST_ENTRY_CHAINS, total):
+        raise RuntimeError("(d) the resumed 2-rank run departs from the "
+                           "uninterrupted one")
+
+
+def phase_dist(p, card):
+    """Multi-GPU ranks (``[dist]``, module docstring phase 20): (a) one
+    NCCL rank, (b) two gloo ranks' farms, (c) the row-sharded grid, (d)
+    the CLI under torchrun resumed across rank counts."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        tmp = Path(tmp)
+
+        def gloo():  # (b) and (c) share one launch of two ranks
+            _, seconds = _torchrun(2, [str(ROOT / "chip_smoke.py"),
+                                       "--dist-worker", "gloo", str(tmp)],
+                                   "(b), (c)")
+            print(f"[dist] (b), (c) launch {seconds:.1f} s", flush=True)
+            return _worker_results(tmp, "gloo", 2)
+
+        ranks = []
+        for tag, part in (("a", lambda: _dist_nccl(tmp, card)),
+                          ("b, c launch", lambda: ranks.extend(gloo())),
+                          ("b", lambda: _dist_farms(p, tmp, ranks, card)),
+                          ("c", lambda: _dist_grid(tmp, ranks, card)),
+                          ("d", lambda: _dist_entry(p, tmp, card))):
+            t0 = time.perf_counter()
+            part()
+            print(f"[dist] ({tag}) part {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
                watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
@@ -3359,6 +3793,8 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
 
 
 def main():
+    if sys.argv[1:2] == ["--dist-worker"]:  # one rank of a [dist] launch
+        return _dist_worker(*sys.argv[2:4])
     card, _ = phase_device()
     import torch
 
@@ -3396,6 +3832,9 @@ def main():
     t0 = time.perf_counter()
     rows["srf_harmonics"], launches["srf_harmonics"] = phase_srf(p, card)
     print(f"[srf] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_dist(p, card)
+    print(f"[dist] phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": "mcmc_tpu_torch/ops/csrc/" + source,

@@ -4,8 +4,13 @@ PyTorch counterpart of ``mcmc_tpu/cli.py``, with the same JSON / TOML
 schema, ``--dry-run``, ``--info`` and ``--quiet``, plus ``--device``: the
 farm runs on the card (``cuda``, the default) unless ``--device cpu`` asks
 for the CPU (the JAX package picks its device with ``JAX_PLATFORMS``).
-Not carried over: joining a multi-process cluster
-(``initialize_distributed``), which waits for multi-GPU runs.
+Launched by ``torchrun --nproc-per-node N -m mcmc_tpu_torch cfg.json`` it
+runs the same config as N ranks, one card each: ``main`` joins the run
+(``parallel/distributed.initialize_distributed``) before it builds
+anything, the farm is sharded over the ranks, and rank 0 alone writes the
+saved files and prints the summary.  Re-invoking resumes, at any number
+of ranks.  ``--backend gloo --card 0`` puts every rank on card 0 (two
+ranks on a one-card machine).
 
 The reference has no CLI (SURVEY §1 L5): experiments live as ``__main__``
 constant blocks inside the driver scripts
@@ -285,6 +290,10 @@ def run(cfg: dict, config_dir: Path = Path("."), quiet: bool = False,
     directory.  Returns the per-chain result tuples from the farm driver.
     """
     chain, ds, initial_beds = build_experiment(cfg, config_dir)
+    # every rank returns the same results: rank 0 writes and prints them
+    from .parallel.distributed import world
+
+    emit = world()[0] == 0
 
     farm = dict(cfg.get("farm", {}))
     n_chains = int(farm.get("n_chains", 1))
@@ -310,7 +319,7 @@ def run(cfg: dict, config_dir: Path = Path("."), quiet: bool = False,
             chain, ssc_rng_seeds=seeds,
             lsc_rng_seed=farm.get("lsc_rng_seed"), **common)
 
-    save = cfg.get("save", {})
+    save = cfg.get("save", {}) if emit else {}
     if save.get("final_beds"):
         np.save(_resolve(config_dir, save["final_beds"]),
                 np.stack([r[0] for r in results]))
@@ -324,7 +333,7 @@ def run(cfg: dict, config_dir: Path = Path("."), quiet: bool = False,
             resampled_times=np.stack([r[5] for r in results]),
             blocks_used=np.stack([r[6] for r in results]))
 
-    if not quiet:
+    if not quiet and emit:
         _print_summary(results)
     return results
 
@@ -406,10 +415,25 @@ def main(argv=None) -> int:
                          "(checkpoints, trace coverage) and exit")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress progress and summary output")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the ranks' backend (default: "
+                         "nccl on the card, gloo on the CPU)")
+    ap.add_argument("--card", type=int, default=None,
+                    help="under torchrun: the card every rank binds "
+                         "(default: its LOCAL_RANK); with --backend gloo "
+                         "several ranks may share one card")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the farm (default: cuda, the "
                          "card; 'cpu' runs the kernels' plain versions)")
     ns = ap.parse_args(argv)
+
+    # under torchrun: join the run before anything touches a device (a
+    # no-op without torchrun's variables)
+    from .parallel.distributed import initialize_distributed
+
+    initialize_distributed(
+        local_device_ids=None if ns.card is None else [ns.card],
+        backend=ns.backend, device=ns.device)
 
     cfg_path = Path(ns.config)
     cfg = load_config(cfg_path)

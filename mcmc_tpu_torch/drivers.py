@@ -14,8 +14,9 @@ The reference's nested output layout
 ``<output_path>/LargeScaleChain`` and
 ``<output_path>/LargeScaleChain/<tag>/SmallScaleChain`` run directories,
 as in the JAX package.  ``device`` is the card unless the caller asks for
-the CPU.  Not carried over: the multi-process one-writer gate
-(``_pod_one_writer``), which waits for multi-GPU runs.
+the CPU.  Under ``torchrun`` (one process a card) the farm is sharded over
+the ranks (``parallel/sampler.py``): every rank returns the same global
+results, and only rank 0 prints (``_pod_one_writer``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,20 @@ from pathlib import Path
 from typing import Optional
 
 from .io.checkpoint import run_with_checkpointing
+from .parallel.distributed import world
 from .parallel.sampler import MultiChainSampler
+
+
+def _pod_one_writer(quiet: bool, progress: bool):
+    """Silence the completion banner and summary on every rank but 0.
+
+    Every rank returns the same results, so an ungated banner would print
+    one copy a rank into a combined log.  ``progress`` is left as it is:
+    the sampler's per-segment gathers run on every rank whatever it says,
+    and the sampler prints its progress from rank 0 only."""
+    if world()[0] != 0:
+        return True, progress
+    return quiet, progress
 
 _DONE_ART = r"""
            _
@@ -38,12 +52,10 @@ _DONE_ART = r"""
 def _unpack_per_chain(states, hist, sampler):
     """Per-chain result tuples in the reference's ordering
     (beds, loss_mc, loss_data, loss, steps, resampled_times, blocks_used);
-    an SGS chain's beds with the trend restored."""
-    beds = states.bed
-    if sampler.is_sgs:
-        beds = beds + sampler.consts.trend
-    beds = beds.cpu().numpy()
-    resampled = states.resampled.cpu().numpy()
+    an SGS chain's beds with the trend restored.  The whole farm's, on
+    every rank of a sharded one (``sampler.gather``)."""
+    beds = sampler.gather(sampler.full_bed(states))
+    resampled = sampler.gather(states.resampled)
     return [(beds[i], hist["loss_mc"][i], hist["loss_data"][i],
              hist["loss"][i], hist["step"][i], resampled[i],
              hist["block"][i]) for i in range(sampler.n_chains)]
@@ -53,6 +65,7 @@ def _farm(chain, n_chains, ckpt_dir, seeds, initial_beds, n_iter,
           segment_size, checkpoint_every, progress, quiet,
           async_checkpoints, device):
     tic = time.time()
+    quiet, progress = _pod_one_writer(quiet, progress)
     sampler = MultiChainSampler(chain, n_chains=n_chains, device=device)
     states, hist, cum = run_with_checkpointing(
         sampler, n_iter, ckpt_dir, seeds=seeds, initial_beds=initial_beds,

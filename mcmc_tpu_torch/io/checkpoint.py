@@ -27,9 +27,23 @@ What a load refuses: a checkpoint of the other chain family or grid
 loading sampler's (an int-seeded farm's generator on another device, or
 per-chain streams where the sampler is int-seeded, and the other way
 round), or that has none (a JAX package checkpoint, whose RNG state is a
-per-chain JAX key), with that reason.  Not carried over: the
-multi-process sharded layout (``checkpoint_{N}.proc{k}of{P}.npz`` +
-``.ok`` marker), which waits for multi-GPU runs.
+per-chain JAX key), with that reason.
+
+Multi-rank layout (a farm sharded over ``torch.distributed`` ranks,
+``parallel/sampler.py``), as the JAX package's multi-process one: each
+rank writes ``checkpoint_{N}.proc{k}of{P}.npz`` with its own chains'
+state, the rows they hold and its stream's state (an int-seeded farm's
+generator, alike on every rank, or its chains' per-chain keys and the
+step); after a barrier, rank 0 publishes the empty ``checkpoint_{N}.ok``
+marker.  A set is visible only with its marker and every file, so a
+crash mid-save never yields a half-readable checkpoint; a re-save at the
+same iteration retracts the old set first, marker first.  ``load``
+reassembles the whole batch from a single file or from any complete set
+(``utils/rng.join_stream_states``) and hands a rank its rows, so a
+checkpoint written at one rank count resumes at another.  Trace
+histories, which every rank holds alike, are written and pruned by rank
+0.  Sharded saves are synchronous: their barriers sit at the same point
+of every rank's program.  A filesystem that every rank sees is assumed.
 """
 
 from __future__ import annotations
@@ -46,12 +60,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..models.chain_crf import ChainState
 from ..models.chain_sgs import SGSState
-from ..utils.rng import generator_kind, resolve_device
+from ..parallel.distributed import world
+from ..utils.rng import generator_kind, join_stream_states, resolve_device
 
 _CKPT_RE = re.compile(r"checkpoint_(\d+)\.npz$")
 _HIST_RE = re.compile(r"hist_(\d+)_(\d+)\.npz$")
+_SHARD_RE = re.compile(r"checkpoint_(\d+)\.proc(\d+)of(\d+)\.npz$")
+_MARKER_RE = re.compile(r"checkpoint_(\d+)\.ok$")
 _STATE_CLASSES = {"ChainState": ChainState, "SGSState": SGSState}
 
 
@@ -166,13 +185,29 @@ class CheckpointManager:
     # -- discovery ----------------------------------------------------------
 
     def _checkpoints(self):
-        """Sorted [(iter, path)] of the published checkpoints."""
-        out = []
+        """Sorted [(iter, layout, paths)] of the COMPLETE checkpoints:
+        single files, and sharded sets with their ``.ok`` marker and every
+        shard file (a set beats a same-iteration single file; of two sets,
+        the current rank count's, then the larger)."""
+        singles, shards, markers = {}, {}, set()
         for p in self.dir.iterdir():
-            m = _CKPT_RE.search(p.name)
-            if m:
-                out.append((int(m.group(1)), p))
-        return sorted(out)
+            if m := _CKPT_RE.search(p.name):
+                singles[int(m.group(1))] = p
+            elif m := _SHARD_RE.search(p.name):
+                it, k, nproc = (int(g) for g in m.groups())
+                shards.setdefault(it, {}).setdefault(nproc, {})[k] = p
+            elif m := _MARKER_RE.search(p.name):
+                markers.add(int(m.group(1)))
+        out = {it: ("single", [p]) for it, p in singles.items()}
+        size = world()[1]
+        for it in markers:
+            layouts = shards.get(it, {})
+            for nproc in sorted(layouts, key=lambda n: (n != size, -n)):
+                files = layouts[nproc]
+                if len(files) == nproc:
+                    out[it] = ("sharded", [files[k] for k in sorted(files)])
+                    break
+        return sorted((it, kind, paths) for it, (kind, paths) in out.items())
 
     def latest_iter(self) -> Optional[int]:
         """Cumulative iteration of the newest checkpoint, or None."""
@@ -186,11 +221,13 @@ class CheckpointManager:
             {"checkpoints": [{"iter", "layout", "files", "bytes",
                               "mtime"}, ...],          # oldest -> newest
              "history_spans": [(start_row, end_row), ...]}
-        """
+
+        Only complete checkpoints are listed (``_checkpoints``)."""
         self.flush()
-        cps = [{"iter": it, "layout": "single", "files": [p.name],
-                "bytes": p.stat().st_size, "mtime": p.stat().st_mtime}
-               for it, p in self._checkpoints()]
+        cps = [{"iter": it, "layout": kind, "files": [p.name for p in paths],
+                "bytes": sum(p.stat().st_size for p in paths),
+                "mtime": max(p.stat().st_mtime for p in paths)}
+               for it, kind, paths in self._checkpoints()]
         spans = []
         for p in self.dir.iterdir():
             m = _HIST_RE.search(p.name)
@@ -198,34 +235,69 @@ class CheckpointManager:
                 spans.append((int(m.group(1)), int(m.group(2))))
         return {"checkpoints": cps, "history_spans": sorted(spans)}
 
+    def _delete_iter_files(self, it: int, keep_nproc: Optional[int] = None):
+        """Remove checkpoint ``it``'s files, the marker first so that a
+        reader never sees a complete-looking set go partial; with
+        ``keep_nproc``, the shard files of that rank count stay."""
+        (self.dir / f"checkpoint_{it}.ok").unlink(missing_ok=True)
+        for p in list(self.dir.iterdir()):
+            m = _CKPT_RE.search(p.name)
+            if m is None:
+                m = _SHARD_RE.search(p.name)
+                if m is not None and int(m.group(3)) == keep_nproc:
+                    continue
+            if m and int(m.group(1)) == it:
+                p.unlink(missing_ok=True)
+
     # -- save / load --------------------------------------------------------
 
     def save(self, cumulative_iter: int, states, generator_state,
-             histories: Optional[dict] = None, meta: Optional[dict] = None):
+             histories: Optional[dict] = None, meta: Optional[dict] = None,
+             *, sharded: Optional[bool] = None, rows=None):
         """Write ``checkpoint_{cumulative_iter}.npz``: the state, the
         generator state ``(kind, uint8 array)``, optional inline
-        histories and meta.  Returns the target path; in async mode it
-        exists (or the failure raises) only after ``flush()``."""
+        histories and meta.  ``sharded`` (default: whether the run has
+        more than one rank) writes the multi-rank layout instead, every
+        rank calling with its own chains (module docstring); ``rows``
+        (lo, n_total) places them in the farm's batch (default: rank k
+        holds the k-th equal block).  Returns the target path; in async
+        mode it exists (or the failure raises) only after ``flush()``."""
         kind, rng_state = generator_state
         payload = {f"state_{k}": v
                    for k, v in _state_to_arrays(states).items()}
         payload["rng_state"] = np.asarray(rng_state, np.uint8)
         for k, v in (histories or {}).items():
             payload[f"hist_{k}"] = np.asarray(v)
-        payload["meta_json"] = np.frombuffer(json.dumps({
-            "cumulative_iter": int(cumulative_iter),
-            "state_class": type(states).__name__, "rng_kind": kind,
-            **(meta or {})}).encode(), dtype=np.uint8)
         it = int(cumulative_iter)
+        rank, size = world()
+        if sharded is None:
+            sharded = size > 1
+        n = payload["state_fields"].shape[0]
+        lo, n_total = (rank * n, size * n) if rows is None else rows
+        if not sharded and (lo, n_total) != (0, n):
+            raise ValueError(f"a single-file checkpoint holds the whole "
+                             f"batch; these are chains [{lo}, {lo + n}) of "
+                             f"{n_total}")
+        payload["meta_json"] = np.frombuffer(json.dumps({
+            "cumulative_iter": it, "state_class": type(states).__name__,
+            "rng_kind": kind, "rows": [int(lo), int(lo) + n],
+            "n_chains": int(n_total), **(meta or {})}).encode(),
+            dtype=np.uint8)
+        if sharded:
+            self.flush()  # queued single-file writes land first
+            return self._save_sharded(it, payload, rank, size)
         target = self.dir / f"checkpoint_{it}.npz"
 
         def _write():
             old = self._checkpoints()
+            # a same-iteration set goes before the new file is visible: a
+            # set beats a single file in discovery
+            self._delete_iter_files(it)
             _atomic_npz(self.dir, target, payload)
             # superseded checkpoints go only once the new one is durable
-            for old_it, p in old[: max(0, len(old) - (self.keep - 1))]:
+            for old_it, _, _ in old[: max(0, len(old) - (self.keep - 1))]:
                 if old_it != it:
-                    p.unlink(missing_ok=True)
+                    self._delete_iter_files(old_it)
 
         if self.async_write:
             self._submit(_write)
@@ -233,12 +305,35 @@ class CheckpointManager:
             _write()
         return target
 
+    def _save_sharded(self, it: int, payload: dict, rank: int, size: int):
+        """Rank ``rank``'s file of the set, between barriers: rank 0
+        retracts any older same-iteration checkpoint (marker first), every
+        rank writes its file, rank 0 publishes the marker, then deletes
+        the superseded checkpoints."""
+        old = self._checkpoints()
+        if rank == 0:
+            self._delete_iter_files(it, keep_nproc=size)
+        dist.barrier()
+        target = _atomic_npz(
+            self.dir, self.dir / f"checkpoint_{it}.proc{rank}of{size}.npz",
+            payload)
+        dist.barrier()  # every file durable before the marker
+        if rank == 0:
+            marker_tmp = self.dir / f".ok_{it}.tmp"
+            marker_tmp.touch()
+            os.replace(marker_tmp, self.dir / f"checkpoint_{it}.ok")
+            for old_it, _, _ in old[: max(0, len(old) - (self.keep - 1))]:
+                if old_it != it:
+                    self._delete_iter_files(old_it)
+        dist.barrier()  # the set is visible to every rank on return
+        return target
+
     def append_history(self, start_row: int, end_row: int, rows: dict):
         """Write one incremental ``hist_{a}_{b}.npz`` trace segment (the
         reference's concat-with-previous results protocol without
         rewriting the full history each save)."""
-        if end_row <= start_row:
-            return None
+        if end_row <= start_row or world()[0] != 0:
+            return None  # every rank holds the same rows: rank 0 writes
         rows_np = {k: np.asarray(v) for k, v in rows.items()}
         target = self.dir / f"hist_{int(start_row)}_{int(end_row)}.npz"
 
@@ -255,8 +350,10 @@ class CheckpointManager:
         """Delete history segments starting at or after ``from_row``.
         Called on resume: a crash between a history append and its state
         save leaves a stale segment ahead of the checkpoint, which the
-        resumed run records again."""
+        resumed run records again.  Rank 0's job, as the writes are."""
         self.flush()
+        if world()[0] != 0:
+            return
         for p in list(self.dir.iterdir()):
             m = _HIST_RE.search(p.name)
             if m and int(m.group(1)) >= int(from_row):
@@ -285,38 +382,75 @@ class CheckpointManager:
             out = {k: v[:, :upto] for k, v in out.items()}
         return out
 
+    @staticmethod
+    def _read(paths):
+        """(state arrays, rng state, meta) of a single file, or of a
+        sharded set reassembled in row order (a block that several ranks
+        hold alike is read once)."""
+        parts = []
+        for path in paths:
+            with np.load(path) as z:
+                meta = json.loads(bytes(z["meta_json"]).decode())
+                parts.append((meta, {k[len("state_"):]: z[k]
+                                     for k in z.files
+                                     if k.startswith("state_")},
+                              z["rng_state"] if "rng_state" in z.files
+                              else None, path))
+        parts.sort(key=lambda part: tuple(part[0].get("rows", (0, 0))))
+        blocks, end = [], 0
+        for part in parts:
+            lo, hi = part[0].get("rows", (0, None))
+            if blocks and lo == blocks[-1][0]["rows"][0]:
+                continue  # the same block from another rank
+            if lo != end:
+                raise ValueError(f"{part[3].name} holds chains from {lo}, "
+                                 f"the set's files before it end at {end}")
+            blocks.append(part)
+            end = hi
+        meta = blocks[0][0]
+        total = meta.get("n_chains")
+        if total is not None and end != total:
+            raise ValueError(f"the files hold chains [0, {end}) of {total}")
+        arrays = {k: np.concatenate([b[1][k] for b in blocks])
+                  for k in blocks[0][1]}
+        states = [b[2] for b in blocks]
+        rng_state = (None if any(st is None for st in states) else
+                     join_stream_states(meta.get("rng_kind"), states))
+        return arrays, rng_state, dict(meta)
+
     def load(self, cumulative_iter: Optional[int] = None, device=None,
-             rng_kind: Optional[str] = None):
+             rng_kind: Optional[str] = None, rows=None):
         """``(cumulative_iter, states, histories, meta)`` of the newest (or
-        the named) checkpoint with the state on ``device`` (the card unless
-        the caller asks for the CPU, ``utils/rng.resolve_device``), or None
-        when there is none.  ``meta["rng_kind"]`` and ``meta["rng_state"]``
-        hold the stream's state; a checkpoint without one, or of another
-        kind than ``rng_kind`` (default: ``device``'s generator kind, that
-        of an int-seeded sampler), raises."""
+        the named) checkpoint, single file or sharded set alike, with the
+        state on ``device`` (the card unless the caller asks for the CPU,
+        ``utils/rng.resolve_device``), or None when there is none.
+        ``rows`` (lo, hi) keeps those chains of the batch (a rank's);
+        ``meta["n_chains"]`` is the whole batch's count.
+        ``meta["rng_kind"]`` and ``meta["rng_state"]`` hold the whole
+        farm's stream state; a checkpoint without one, or of another kind
+        than ``rng_kind`` (default: ``device``'s generator kind, that of
+        an int-seeded sampler), raises."""
         self.flush()
         cps = self._checkpoints()
         if not cps:
             return None
         if cumulative_iter is None:
-            path = cps[-1][1]
+            _, _, paths = cps[-1]
         else:
-            match = [p for it, p in cps if it == int(cumulative_iter)]
+            match = [p for it, _, p in cps if it == int(cumulative_iter)]
             if not match:
                 raise FileNotFoundError(
                     f"no checkpoint at iter {cumulative_iter} in {self.dir}")
-            path = match[0]
-        with np.load(path) as z:
-            meta = json.loads(bytes(z["meta_json"]).decode())
-            arrays = {k[len("state_"):]: z[k] for k in z.files
-                      if k.startswith("state_")}
+            paths = match[0]
+        name = paths[0].name
+        arrays, rng_state, meta = self._read(paths)
+        with np.load(paths[0]) as z:
             histories = {k[len("hist_"):]: z[k] for k in z.files
                          if k.startswith("hist_")}
-            rng_state = z["rng_state"] if "rng_state" in z.files else None
         kind = meta.get("rng_kind")
         if kind is None or rng_state is None:
             raise ValueError(
-                f"{path.name} holds no generator state (a JAX package "
+                f"{name} holds no generator state (a JAX package "
                 "checkpoint keeps its RNG state as per-chain keys, which "
                 "no torch generator can continue): it cannot be resumed "
                 "here; start a fresh run directory")
@@ -324,11 +458,19 @@ class CheckpointManager:
         want = generator_kind(device) if rng_kind is None else rng_kind
         if kind != want:
             raise ValueError(
-                f"{path.name} holds a {kind!r} stream state, but the "
+                f"{name} holds a {kind!r} stream state, but the "
                 f"sampler on {device} owns a {want!r} stream: resume it "
                 "with the seeding it was written with (an int master seed "
                 "on the device it was written on, or a per-chain seed "
                 "list)")
+        meta["n_chains"] = arrays["fields"].shape[0]
+        meta.pop("rows", None)
+        if rows is not None:
+            lo, hi = rows
+            if not 0 <= lo <= hi <= meta["n_chains"]:
+                raise ValueError(f"chains [{lo}, {hi}) of a checkpoint "
+                                 f"holding {meta['n_chains']}")
+            arrays = {k: v[lo:hi] for k, v in arrays.items()}
         states = _arrays_to_state(arrays, meta.pop("state_class"), device)
         cum = meta.pop("cumulative_iter")
         meta["rng_state"] = rng_state
@@ -371,7 +513,8 @@ def run_with_checkpointing(sampler, n_iter: int, directory,
 
 def _run(mgr, sampler, n_iter, seeds, initial_beds, segment_size, progress,
          checkpoint_every):
-    ck = mgr.load(device=sampler.device, rng_kind=sampler.rng_kind(seeds))
+    ck = mgr.load(device=sampler.device, rng_kind=sampler.rng_kind(seeds),
+                  rows=sampler.rows)
     if ck is not None:
         done, states, histories, meta = ck
         expected_cls = "SGSState" if sampler.is_sgs else "ChainState"
@@ -387,9 +530,9 @@ def _run(mgr, sampler, n_iter, seeds, initial_beds, segment_size, progress,
             raise ValueError(
                 f"checkpoint state grid {got} != sampler grid {exp}: the "
                 "directory belongs to a run on another domain")
-        if states.fields.shape[0] != sampler.n_chains:
+        if meta["n_chains"] != sampler.n_chains:
             raise ValueError(
-                f"checkpoint holds {states.fields.shape[0]} chains, the "
+                f"checkpoint holds {meta['n_chains']} chains, the "
                 f"sampler runs {sampler.n_chains}")
         # a crash between a history append and its state save leaves a
         # stale segment ahead of the checkpoint
@@ -423,7 +566,8 @@ def _run(mgr, sampler, n_iter, seeds, initial_beds, segment_size, progress,
                                 if k in histories else v)
             box["segments"] = []
         mgr.save(box["rows"], states_, sampler.generator_state(), meta={
-            "grid_hw": [int(sampler.static.H), int(sampler.static.W)]})
+            "grid_hw": [int(sampler.static.H), int(sampler.static.W)]},
+            rows=(sampler.rows[0], sampler.n_chains))
         box["saved_rows"] = box["rows"]
 
     def cb(_local, states_, traces_np):

@@ -50,8 +50,8 @@ from ..ops.window_kernel import (fused_window_update,
                                  window_geometry)
 from ..utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                             WeightConfig)
-from ..utils.rng import (PerChainStreams, is_seed_list, resolve_device,
-                         resolve_seed)
+from ..utils.rng import (PerChainStreams, RowSlice, draw_rows, is_seed_list,
+                         resolve_device, resolve_seed)
 from .randfield import (RandFieldArrays, RandFieldStatic,
                         block_param_entries, block_params_from,
                         build_randfield, draw_block_params, finish_block,
@@ -246,9 +246,14 @@ def draw(gen, static: CRFStatic, consts: CRFConsts, n: int,
     index and variogram parameters (``draw_block_params``), then the
     half-spectrum noise's seed or, by the gstools-SRF method, the SRF
     draws (``ops/srf.draw_srf``), then the nugget normals (with a
-    nugget), the centre index and the MH uniform."""
+    nugget), the centre index and the MH uniform.  From a ``RowSlice``
+    (a rank of a sharded int-seeded farm): the whole farm's draws from its
+    generator, cut to its rows."""
+    if isinstance(gen, RowSlice):
+        return draw_rows(draw(gen.generator, static, consts, gen.n_total,
+                              impl), gen.lo, gen.hi)
     B = static.rf.B
-    device = consts.stacked.device
+    device = consts.rf.pairs.device
     srf = {}
     noise = None
     if isinstance(gen, PerChainStreams):
@@ -439,7 +444,7 @@ def single_chain_farm(chain, seed, device):
     first), else fresh entropy.  The stream stays on the chain."""
     from ..parallel.sampler import MultiChainSampler
 
-    sampler = MultiChainSampler(chain, 1, device=device)
+    sampler = MultiChainSampler(chain, 1, use_mesh=False, device=device)
     streams = chain._streams if seed is None else None
     if streams is None:
         seed = chain.seed if seed is None else seed

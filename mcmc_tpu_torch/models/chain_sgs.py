@@ -71,7 +71,8 @@ from ..ops.sgs_window_kernel import (window_extract,
                                      window_writeback_reference)
 from ..ops.transforms import NormalScoreLUT, NormalScoreTransform
 from ..utils.config import LossConfig, SGSParams, VariogramConfig
-from ..utils.rng import PerChainStreams, resolve_device, resolve_seed
+from ..utils.rng import (PerChainStreams, RowSlice, draw_rows,
+                         resolve_device, resolve_seed)
 from .chain_crf import (IMPLS, chain_loss_mc, run_single_chain,
                         sample_probes)
 
@@ -716,7 +717,11 @@ def draw(gen, static: SGSStatic, consts: SGSConsts, n: int,
          impl: str = "auto") -> SGSDraws:
     """One step's draws for ``n`` chains from ``gen``: a generator, or
     per-chain streams (one launch of ``draw_plan_entries``' plan; its
-    plain version under ``impl="eager"``)."""
+    plain version under ``impl="eager"``), or a ``RowSlice`` (a rank of a
+    sharded int-seeded farm: the whole farm's draws, cut to its rows)."""
+    if isinstance(gen, RowSlice):
+        return draw_rows(draw(gen.generator, static, consts, gen.n_total,
+                              impl), gen.lo, gen.hi)
     device = consts.stacked.device
     if isinstance(gen, PerChainStreams):
         if gen.n_chains != n:

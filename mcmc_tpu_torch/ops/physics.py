@@ -49,11 +49,17 @@ def row_sum(x):
     return x.sum(-1)
 
 
+def masked_sq_rows(res, mask):
+    """Each row's nansum of squared residuals inside ``mask`` (over W,
+    ``row_sum``): (..., H)."""
+    sq = _nansq(res)
+    return row_sum(torch.where(mask, sq, torch.zeros_like(sq)))
+
+
 def masked_sq_sum(res, mask):
     """nansum of squared residuals inside ``mask`` over the trailing (H, W)
     axes (no sigma scaling), over W, then H (``row_sum``)."""
-    sq = _nansq(res)
-    return row_sum(row_sum(torch.where(mask, sq, torch.zeros_like(sq))))
+    return row_sum(masked_sq_rows(res, mask))
 
 
 def masked_gaussian_loss(res, mask, sigma):

@@ -11,9 +11,23 @@ copied to the host once, at its end.
 Both chain families run here: a ``ChainCRF`` steps through
 ``models/chain_crf.make_step``, a ``ChainSGS`` through
 ``models/chain_sgs.make_sgs_step``.  Not carried over from the JAX package:
-the device mesh, chunked launches (``scan_chunked``) and grid auto-padding,
-which were TPU workarounds; multi-GPU sharding waits for a later slice
-(ROADMAP Queue 1).  ``init(seeds=...)`` takes an int master seed (one
+chunked launches (``scan_chunked``) and grid auto-padding, which were TPU
+workarounds.
+
+Over several ranks (one process a card, ``parallel/distributed.py``) the
+farm is sharded on a ``chains`` mesh: in a world of more than one rank the
+sampler builds one over every rank unless given one, and refuses a chain
+count the ranks do not divide.  Each rank steps its contiguous block of
+chains through the same ``run_chains``, so every kernel runs on its own
+card, and ``run`` gathers the traces, the bed snapshots and the progress
+values at the end of every segment, so that every rank returns the same
+global result (the reference's ``_host_np``).  Those gathers are
+collectives: every rank enters each of them in the same order, whatever
+``progress`` says; only rank 0 prints.  Chain i's draws do not depend on
+the number of ranks (``utils/rng``: a rank holds its chains' keys, or the
+farm's generator in a ``RowSlice``), so a rank's chains are bitwise the
+same rows of the one-rank farm wherever the step is batch-invariant.
+``init(seeds=...)`` takes an int master seed (one
 ``torch.Generator`` for the farm) or, as the JAX package does, a list of
 per-chain seeds (``utils/rng.PerChainStreams``: chain i's draws depend
 on ``seeds[i]`` alone; ``run_segment`` advances their step counter once
@@ -45,9 +59,12 @@ from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
 from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                                 make_sgs_step, sgs_init_state)
 from ..utils.progress import MultiChainProgress
-from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, generator_kind,
-                         generator_state, is_seed_list, make_generator,
-                         resolve_device, resolve_seed, restore_generator)
+from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
+                         generator_kind, generator_state, is_seed_list,
+                         make_generator, resolve_device, resolve_seed,
+                         restore_generator)
+from .distributed import bound_device, global_chains_mesh, world
+from .mesh import gather_rows
 
 
 RUN_CHAINS_FORM = ("run_chains(static, consts, states, n_steps, "
@@ -57,7 +74,7 @@ RUN_CHAINS_FORM = ("run_chains(static, consts, states, n_steps, "
 def check_rng(rng, form: str) -> None:
     """Raise a TypeError naming the port's ``form`` unless ``rng`` is the
     port's random source: a ``torch.Generator`` or per-chain streams."""
-    if not isinstance(rng, (torch.Generator, PerChainStreams)):
+    if not isinstance(rng, (torch.Generator, PerChainStreams, RowSlice)):
         raise TypeError(
             f"{form}: rng must be a torch.Generator or per-chain streams "
             "(utils/rng.PerChainStreams), the port's random source in place "
@@ -216,27 +233,75 @@ class MultiChainSampler:
     """Farm of ``n_chains`` chains built from one prototype ``ChainCRF`` or
     ``ChainSGS``.
 
-    ``device``: the card (``None`` or "cuda") unless the caller asks for
-    the CPU; with no card, ``None`` raises rather than running elsewhere.
+    ``mesh``: a ``chains`` mesh to shard the farm over (module
+    docstring); ``None`` builds one over every rank when there is more
+    than one, unless ``use_mesh`` is false (then every rank runs the whole
+    farm).  A farm's mesh spans every rank and has no grid axis of more
+    than one rank.  ``rows``: this rank's chains [lo, hi).
+    ``device``: the mesh's, else the card (``None`` or "cuda") unless the
+    caller or ``initialize_distributed`` asks for the CPU; with no card,
+    ``None`` raises rather than running elsewhere.
     ``impl``: "auto" runs the CUDA kernels for CUDA tensors and their
     plain versions for CPU ones; "eager" always runs the plain versions;
     "fused" demands the kernels and raises on a CPU device.
     """
 
-    def __init__(self, chain, n_chains: int, device=None,
-                 impl: str = "auto"):
+    def __init__(self, chain, n_chains: int, mesh=None,
+                 use_mesh: bool = True, device=None, impl: str = "auto"):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}; got {impl!r}")
+        self.n_chains = int(n_chains)
+        _, size = world()
+        if mesh is None and use_mesh and size > 1:
+            if self.n_chains % size:
+                raise ValueError(
+                    f"n_chains={self.n_chains} is not divisible by the "
+                    f"{size} ranks of this run; use a chain count divisible "
+                    "by the number of ranks, or pass use_mesh=False to run "
+                    "the whole farm on every rank")
+            mesh = global_chains_mesh(device=device)
+        if mesh is not None:
+            self._check_mesh(mesh, size, device)
+            device = mesh.device
+        elif device is None:
+            device = bound_device()
         self.device = resolve_device(device)
         if impl == "fused" and self.device.type != "cuda":
             raise ValueError("impl='fused' runs the CUDA kernels and needs a "
                              f"CUDA device, not {self.device}")
+        self.mesh = mesh
+        n_shards = mesh.shape["chains"] if mesh is not None else 1
+        self.sharded = n_shards > 1
+        per = self.n_chains // n_shards
+        lo = mesh.index("chains") * per if mesh is not None else 0
+        self.rows = (lo, lo + per)
         self.chain = chain
-        self.n_chains = int(n_chains)
         self.impl = impl
         self.is_sgs = isinstance(chain, ChainSGS)
         self.static, self.consts = chain.build(self.device)
         self.generator = None
+
+    def _check_mesh(self, mesh, size: int, device) -> None:
+        """Refuse a mesh a farm cannot run on: one that leaves out a rank
+        (its gathers would wait for that rank forever), shards the grid,
+        does not divide the chains, or is on another device than
+        ``device``."""
+        if sorted(mesh.ranks.ravel().tolist()) != list(range(size)):
+            raise ValueError(
+                f"the mesh holds ranks {sorted(mesh.ranks.ravel().tolist())}"
+                f" of a {size}-rank run: a farm's mesh must span every rank "
+                "(parallel.distributed.global_chains_mesh())")
+        if any(n > 1 for axis, n in mesh.shape.items() if axis != "chains"):
+            raise ValueError(f"mesh {mesh.shape}: the farm shards chains "
+                             "only; a sharded grid runs through "
+                             "grid_sharded.make_sharded_crf_chains")
+        if self.n_chains % mesh.shape["chains"]:
+            raise ValueError(f"n_chains={self.n_chains} is not divisible by "
+                             f"the mesh's {mesh.shape['chains']} chain shards")
+        if device is not None and resolve_device(device).type \
+                != mesh.device.type:
+            raise ValueError(f"device {device} but the mesh is on "
+                             f"{mesh.device}")
 
     # -- state ---------------------------------------------------------------
 
@@ -253,13 +318,22 @@ class MultiChainSampler:
         entropy); a None falls back to the chain's
         ``set_random_generator`` seed when it has one.
         """
+        lo, hi = self.rows
         if seeds is None:
             seeds = self.chain.seed
         if is_seed_list(seeds):
             self.generator = PerChainStreams.from_seeds(
-                resolve_seed(seeds, self.n_chains), self.device)
+                resolve_seed(seeds, self.n_chains), self.device).rows(lo, hi)
         else:
-            self.generator = make_generator(seeds, self.device)
+            self.generator = make_generator(self._shared_seed(seeds),
+                                            self.device)
+        if initial_beds is not None:
+            initial_beds = np.asarray(initial_beds)
+            if initial_beds.ndim == 3:
+                if initial_beds.shape[0] != self.n_chains:
+                    raise ValueError("initial_beds leading dim must equal "
+                                     "n_chains")
+                initial_beds = initial_beds[lo:hi]
         if self.is_sgs:
             if initial_beds is None:
                 beds = self.chain._initial_detrended
@@ -267,15 +341,24 @@ class MultiChainSampler:
             else:
                 beds = self.chain.preprocess_beds(initial_beds)
                 z0 = self.chain.host_transform(beds)
-        else:
-            beds = (self.chain.initial_bed if initial_beds is None
-                    else np.asarray(initial_beds, np.float32))
-        if beds.ndim == 3 and beds.shape[0] != self.n_chains:
-            raise ValueError("initial_beds leading dim must equal n_chains")
-        if self.is_sgs:
-            return init_states(beds, self.consts, self.n_chains,
+            return init_states(beds, self.consts, hi - lo,
                                z0=z0 if self.static.use_transform else beds)
-        return init_states(beds, self.consts, self.n_chains)
+        beds = (self.chain.initial_bed if initial_beds is None
+                else initial_beds.astype(np.float32))
+        return init_states(beds, self.consts, hi - lo)
+
+    def _shared_seed(self, seed) -> int:
+        """An int seed that every rank of a sharded farm holds alike: a
+        None draws fresh entropy on the mesh's first rank and sends it to
+        the others."""
+        if not self.sharded or seed is not None:
+            return resolve_seed(seed)
+        src = int(self.mesh.ranks.flat[0])
+        value = torch.tensor([resolve_seed(None) if world()[0] == src else 0],
+                             dtype=torch.int64, device=self.device)
+        torch.distributed.broadcast(value, src=src,
+                                    group=self.mesh.group("chains"))
+        return int(value.item())
 
     def rng_kind(self, seeds=None) -> str:
         """The kind of stream this sampler owns: its stream's after
@@ -297,17 +380,34 @@ class MultiChainSampler:
         return generator_state(self.generator)
 
     def restore_generator(self, kind: str, state, seeds=None) -> None:
-        """Continue the stream a checkpoint stored; a state of another
-        kind than ``rng_kind(seeds)`` raises, and per-chain streams for
-        another number of chains too."""
+        """Continue the stream a checkpoint stored (the whole farm's: a
+        rank keeps its chains' streams); a state of another kind than
+        ``rng_kind(seeds)`` raises, and per-chain streams for another
+        number of chains too."""
         gen = restore_generator(kind, state, self.device,
                                 want=self.rng_kind(seeds))
-        if (isinstance(gen, PerChainStreams)
-                and gen.n_chains != self.n_chains):
-            raise ValueError(f"the state holds {gen.n_chains} per-chain "
-                             f"streams, the sampler runs {self.n_chains} "
-                             "chains")
+        if isinstance(gen, PerChainStreams):
+            if gen.n_chains != self.n_chains:
+                raise ValueError(f"the state holds {gen.n_chains} per-chain "
+                                 f"streams, the sampler runs "
+                                 f"{self.n_chains} chains")
+            gen = gen.rows(*self.rows)
         self.generator = gen
+
+    def stream(self):
+        """The random source of this rank's steps: the sampler's stream,
+        or in a sharded int-seeded farm its generator in a ``RowSlice``."""
+        if self.sharded and isinstance(self.generator, torch.Generator):
+            return RowSlice(self.generator, self.n_chains, *self.rows)
+        return self.generator
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """Host copy of the whole farm's ``x``, whose dimension ``dim``
+        runs over this rank's chains: gathered over the ranks in a
+        sharded farm (a collective every rank enters)."""
+        if self.sharded:
+            x = gather_rows(x, self.mesh, dim=dim)
+        return host_copy(x)
 
     # -- execution -----------------------------------------------------------
 
@@ -324,13 +424,13 @@ class MultiChainSampler:
         if self.generator is None:
             raise RuntimeError("call init() before running the sampler")
         return run_chains(self.static, self.consts, states, n_steps,
-                          save_beds, rng=self.generator, impl=self.impl)
+                          save_beds, rng=self.stream(), impl=self.impl)
 
     def initial_row(self, states: ChainState | SGSState,
                     save_beds: bool = False):
         """Trace row 0, the state itself (``initial_row``), as host numpy
-        with a leading axis of 1."""
-        return {k: host_copy(v) for k, v in
+        with a leading axis of 1, the whole farm's (``gather``)."""
+        return {k: self.gather(v, dim=1) for k, v in
                 initial_row(self.consts, states, save_beds).items()}
 
     def run(self, states: ChainState | SGSState, n_iter: int,
@@ -354,15 +454,22 @@ class MultiChainSampler:
         empty one at ``n_iter = 1`` too) into ``traces["bed_thin"]``,
         (n_chains, n_segments, H, W).
         profile_dir: a ``torch.profiler`` trace (CPU, and CUDA on the card)
-        of the second segment, exported there as a Chrome trace; written
-        only when there is a second segment.
+        of the second segment, exported there as a Chrome trace (one a
+        rank in a sharded farm); written only when there is a second
+        segment.
+
+        In a sharded farm the traces, snapshots and progress values are
+        the whole farm's on every rank; the returned states are the
+        rank's own chains.
         """
         n_iter = int(n_iter)
         if n_iter < 1:
             raise ValueError("n_iter must be >= 1 (trace row 0 records "
                              "the initial state)")
+        emit = world()[0] == 0
         renderer = (MultiChainProgress(self.n_chains, n_iter)
-                    if progress and fancy_progress else None)
+                    if progress and fancy_progress and emit else None)
+        rank_tag = f".rank{world()[0]}" if self.sharded else ""
         init_np = self.initial_row(states)
         collected = []
         bed_snaps = []
@@ -377,12 +484,14 @@ class MultiChainSampler:
                 prof = (self._profiler() if profile_dir is not None
                         and seg_index == 1 else None)
                 states, traces = self.run_segment(states, n)
-                traces_np = {k: v.cpu().numpy() for k, v in traces.items()}
+                traces_np = {k: self.gather(v, dim=1)
+                             for k, v in traces.items()}
                 if prof is not None:
                     prof.stop()
                     os.makedirs(profile_dir, exist_ok=True)
                     prof.export_chrome_trace(os.path.join(
-                        profile_dir, f"segment{seg_index}.pt.trace.json"))
+                        profile_dir,
+                        f"segment{seg_index}{rank_tag}.pt.trace.json"))
             else:
                 traces_np = {k: v[:0] for k, v in init_np.items()}
             if first:  # the initial row travels with the first segment
@@ -391,13 +500,13 @@ class MultiChainSampler:
                 first = False
             collected.append(traces_np)
             if collect_beds:
-                bed_snaps.append(host_copy(self.full_bed(states)))
+                bed_snaps.append(self.gather(self.full_bed(states)))
             remaining -= n
             done += n
             seg_index += 1
-            if progress:
-                loss_np = states.loss_mc.cpu().numpy()
-                acc_np = states.accepted.cpu().numpy() / max(done - 1, 1)
+            loss_np = self.gather(states.loss_mc)
+            acc_np = self.gather(states.accepted) / max(done - 1, 1)
+            if progress and emit:
                 if renderer is not None:
                     renderer.update(done, loss_np, acc_np)
                 else:

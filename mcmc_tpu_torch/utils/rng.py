@@ -20,6 +20,16 @@ Two kinds of stream, as the JAX package's two ways of seeding a farm
 The two frameworks' generators give different numbers for the same seed,
 so parity tests feed both packages the same numpy draws.
 
+A farm sharded over ranks (``parallel/sampler.py``) keeps chain i's draws
+whatever the number of ranks, as the JAX package does by splitting one
+key a chain before it shards.  Per-chain streams give that for free: a
+rank holds its chains' keys (``PerChainStreams.rows``) and the shared
+step.  An int-seeded farm's rank holds the whole farm's generator,
+seeded alike on every rank, inside a ``RowSlice``: at each draw site it
+draws the whole batch and keeps its own rows, so its bits are those of
+the one-rank farm.  ``join_stream_states`` joins the ranks' stream
+states of a sharded checkpoint into the whole farm's.
+
 A checkpoint stores the stream's state beside the chain state
 (``generator_state``), with its kind: ``"cuda-philox"`` (the card's
 Philox seed and offset), ``"cpu-mt19937"`` (the CPU's Mersenne Twister)
@@ -152,6 +162,34 @@ class PerChainStreams:
                    step=torch.from_numpy(step).to(device))
 
 
+    def rows(self, lo: int, hi: int) -> "PerChainStreams":
+        """The streams of chains [lo, hi), sharing this step counter."""
+        return PerChainStreams(keys=self.keys[lo:hi].contiguous(),
+                               step=self.step)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSlice:
+    """An int-seeded farm's stream on one rank of a sharded farm (module
+    docstring): ``generator`` is the whole farm's, seeded alike on every
+    rank; each draw site draws the batch of ``n_total`` chains from it and
+    keeps rows [lo, hi)."""
+
+    generator: torch.Generator
+    n_total: int
+    lo: int
+    hi: int
+
+
+def draw_rows(draws, lo: int, hi: int):
+    """A step's draws (a dataclass of per-chain tensors, None where the
+    configuration draws nothing) cut to chains [lo, hi)."""
+    return dataclasses.replace(draws, **{
+        f.name: getattr(draws, f.name)[lo:hi]
+        for f in dataclasses.fields(draws)
+        if getattr(draws, f.name) is not None})
+
+
 def make_generator(seed, device) -> torch.Generator:
     """One explicit generator on ``device`` seeded from an int ``seed``."""
     gen = torch.Generator(device=torch.device(device))
@@ -170,9 +208,11 @@ def generator_kind(device) -> str:
 def generator_state(gen):
     """``(kind, state)``: the stream's kind and its full state as a uint8
     numpy array (a generator's ``get_state``, or
-    ``PerChainStreams.state``)."""
+    ``PerChainStreams.state``; a ``RowSlice``'s is its generator's)."""
     if isinstance(gen, PerChainStreams):
         return PER_CHAIN_KIND, gen.state()
+    if isinstance(gen, RowSlice):
+        gen = gen.generator
     return (generator_kind(gen.device),
             gen.get_state().numpy().astype(np.uint8, copy=True))
 
@@ -191,3 +231,21 @@ def restore_generator(kind: str, state, device, want=None):
     gen = torch.Generator(device=torch.device(device))
     gen.set_state(torch.from_numpy(np.asarray(state, np.uint8).copy()))
     return gen
+
+
+def join_stream_states(kind: str, states) -> np.ndarray:
+    """One stream state from the states of a sharded farm's ranks, in
+    row order: per-chain streams' keys concatenated under their common
+    step; a generator's state, which every rank holds alike, once.  States
+    that should agree and do not raise."""
+    states = [np.asarray(s, np.uint8) for s in states]
+    if kind == PER_CHAIN_KIND:
+        if any(not np.array_equal(s[:8], states[0][:8]) for s in states):
+            raise ValueError("the ranks' per-chain streams are at "
+                             "different steps")
+        return np.concatenate([states[0][:8]] + [s[8:] for s in states])
+    if any(not np.array_equal(s, states[0]) for s in states):
+        raise ValueError(f"the ranks' {kind!r} generator states differ: "
+                         "an int-seeded farm's ranks hold one stream")
+    return states[0]
+

@@ -34,15 +34,7 @@ EXCLUDED = {
     "": set(),
     "ops": set(),
     "models": set(),
-    "parallel": {
-        # pending, ROADMAP Queue 1 #4 (multi-GPU): the device mesh, chain
-        # and grid sharding, and the multi-process cluster
-        "chains_mesh", "chains_grid_mesh", "shard_chains", "replicate",
-        "initialize_distributed", "global_chains_mesh",
-        "global_chains_grid_mesh", "make_sharded_crf_chain",
-        "make_sharded_crf_chains", "make_sharded_residual",
-        "make_sharded_loss", "shard_grid_arrays",
-    },
+    "parallel": set(),
     "io": set(),
     "utils": {
         # deliberate (ROADMAP ground rules): JAX keys, and the TPU's

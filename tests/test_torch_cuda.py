@@ -840,3 +840,18 @@ def test_srf_step_on_the_kernels_matches_the_plain_step(cuda_device):
     assert srf_harmonics.launches == fused_window_update.launches == 10
     assert batched_normal.launches == 0
     assert flips <= 0.01 * 10 * N, flips
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_farm_is_the_meshless_farm(cuda_device, tmp_path):
+    """A one-rank NCCL group on card 0 (``tests/torch_dist.py``): each
+    family's farm through ``global_chains_mesh()`` gives the traces, bed
+    snapshots and final state of the same farm built without a mesh, bit
+    for bit."""
+    import json
+
+    from tests.torch_dist import launch
+
+    launch("nccl", 1, tmp_path)
+    assert json.loads((tmp_path / "nccl.json").read_text()) == {
+        "crf": True, "sgs": True}

@@ -166,3 +166,43 @@ def test_new_entry_points_run_on_the_card_unless_asked(call, monkeypatch):
         call(device="cuda")
     out = call(device="cpu")
     assert out.device == torch.device("cpu") and torch.isfinite(out).all()
+
+
+def test_initialize_distributed_binds_a_card_or_the_cpu(monkeypatch):
+    """A rank binds the card its ``LOCAL_RANK`` names: with no card behind
+    it, joining raises (naming device='cpu') and joins nothing, and a
+    second rank is never moved onto card 0; ``device="cpu"`` binds the
+    CPU (gloo), where the sampler then runs by default."""
+    import socket
+
+    import torch.distributed as dist
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.parallel import distributed as mdist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for var, value in (("MASTER_ADDR", "localhost"), ("MASTER_PORT",
+                       str(port)), ("WORLD_SIZE", "1"), ("RANK", "0"),
+                       ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(mdist, "_BOUND", {})
+    with pytest.raises(RuntimeError, match=r"LOCAL_RANK = 1 names card 1.*"
+                                           r"device='cpu'"):
+        mdist.initialize_distributed()
+    with pytest.raises(RuntimeError, match=r"local_device_ids = 0 names"):
+        mdist.initialize_distributed(local_device_ids=[0])
+    assert not dist.is_initialized() and mdist.bound_device() is None
+    try:
+        assert mdist.initialize_distributed(device="cpu") is False
+        assert dist.get_backend() == "gloo"
+        assert mdist.bound_device() == torch.device("cpu")
+        assert mdist.global_chains_mesh().device == torch.device("cpu")
+        sampler = MultiChainSampler(small_chain(small_problem(H=32, W=32)),
+                                    2)
+        assert sampler.device == torch.device("cpu")
+        assert mdist.initialize_distributed() is False  # joined already
+    finally:
+        dist.destroy_process_group()
+    assert mdist.bound_device() is None

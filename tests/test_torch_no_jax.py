@@ -17,10 +17,11 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mcmc_tpu_torch"
 # files that run on a machine without JAX: the package, the chip smoke
-# script and the card tests with their helpers
+# script, the card tests with their helpers and the ranks' workers
 NO_JAX_FILES = sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_helpers.py"])
+    + ["chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_helpers.py",
+       "tests/torch_dist.py"])
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -37,6 +38,9 @@ import mcmc_tpu_torch.ops.lut_kernel
 import mcmc_tpu_torch.ops.noise_kernel
 import mcmc_tpu_torch.ops.sgs_window_kernel
 import mcmc_tpu_torch.ops.transforms
+import mcmc_tpu_torch.parallel.distributed
+import mcmc_tpu_torch.parallel.grid_sharded
+import mcmc_tpu_torch.parallel.mesh
 import mcmc_tpu_torch.parallel.sampler
 import mcmc_tpu_torch.utils.progress
 for m in pkgutil.walk_packages(mcmc_tpu_torch.__path__, "mcmc_tpu_torch."):
