@@ -149,7 +149,7 @@ line or more each:
    iterations resumed to 300, bitwise against 300 straight; and
    ``RandField.get_random_field`` at 512^2 by the SRF method (seconds a
    field, the same seed's bits again);
-20. multi-GPU ranks (``[dist]``, last), each part a
+20. multi-GPU ranks (``[dist]``), each part a
    ``python -m torch.distributed.run --standalone`` launch of this script
    as ``--dist-worker`` (or of the CLI) under a timeout, a failed rank
    failing the phase: (a) one NCCL rank, the CRF headline (768 chains x
@@ -171,7 +171,24 @@ line or more each:
    chains) to 400, re-invoked to 600 on 2 ranks (the
    ``checkpoint_600.proc{0,1}of2.npz`` set and its ``.ok`` marker), then
    to 800 on 1 rank, bitwise an uninterrupted 1-rank 800.  Each part's
-   seconds are printed.
+   seconds are printed;
+21. the tutorial workflow (``[examples]``, last): ``examples/torch_port``
+   01 -> 09, each through its ``main(device="cuda")`` in this process at
+   its default scale, into one ``chip_smoke_*`` directory under the
+   checkout (03's checkpoint and beds are 04's and 05's inputs): T1's
+   CSV; T2's variogram fits and two SGS beds at 96^2; T3's 8-chain CRF
+   farm (4,000 iterations at 256^2, the window and noise kernels once a
+   step); T4's seed-listed SGS farm (the draw kernel and the four SGS
+   kernels once a step); 05's diagnostics from 03's checkpoint; 06's
+   convergence validation at its production scale (256 chains x 512^2,
+   60,000 CRF then 8,000 SGS iterations: its five checks, its STATS line
+   and each stage's chain-it/s, the window and noise kernels once a CRF
+   step, extract, writeback, mixture CG and LUT once an SGS step); 07 on
+   the native 900 x 900 grid (the window kernel once a step; a resume on
+   another grid refused); 08 through the CLI in a subprocess (resumed
+   bitwise); 09 as two gloo ranks on card 0 under torchrun (the same
+   global trace, the sharded checkpoint set reassembled).  Each line
+   gives the example's launches and seconds.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -189,7 +206,7 @@ same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger;
 the SRF kernel's its 3xTF32 products at 495 TFLOP/s)
 and, where one PyTorch call computes the same function, that call's
-time.  Phases 16-20 run last and count their own launches, so the line's
+time.  Phases 16-21 run last and count their own launches, so the line's
 ``launches`` are those of the paths above (the SRF kernel's its own).  The last line is the JSON
 contract ``{"ok": true, "device": ...}``.
 """
@@ -3741,6 +3758,156 @@ def phase_dist(p, card):
                   flush=True)
 
 
+# -- [examples]: the tutorial workflow on the card (phase 21) ----------------
+
+EXAMPLES = ROOT / "examples" / "torch_port"
+EXAMPLE_RUNS = ("01_load_data", "02_statistical_analysis",
+                "03_large_scale_chain", "04_small_scale_chain",
+                "05_visualization", "06_convergence_validation",
+                "07_native_production_grid", "08_cli_experiment",
+                "09_distributed_pod")
+# 06's production scale (its SCALES["cuda"]): the gate holds the example to it
+VALIDATION_SCALE = {"grid": 512, "n_chains": 256, "crf_iters": 60_000,
+                    "sgs_iters": 8_000}
+
+
+def _example_module(name):
+    """``examples/torch_port/<name>.py`` as a module (its file name starts
+    with a digit, so it is loaded by path)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_port_example_{name[:2]}", EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _example_gates(name, r, launches):
+    """What [examples] holds each example's result to: (summary, the
+    failed gates)."""
+    crf = {k: launches.get(k, 0) for k in ("fused_window_update",
+                                           "batched_normal")}
+    sgs = {k: launches.get(k, 0) for k in ("window_extract",
+                                           "window_writeback",
+                                           "mix_masked_cg", "lut_interp")}
+    tag = name[:2]
+    if tag == "01":
+        return (f"{r['grid'][0]}x{r['grid'][1]} grid, {r['data_cells']} data"
+                f" cells, residual rms {r['residual_rms']:.3g}",
+                [] if r["above_surface"] == 0 else ["picks above surface"])
+    if tag == "02":
+        return (f"{r['n_beds']} SGS beds in {r['seconds']:.1f} s, exponential"
+                f" fit {r['fits']['exponential'][:2]}",
+                [] if r["n_beds"] == 2 and not any(r["cells_above_surface"])
+                else ["beds"])
+    if tag == "03":
+        steps = r["n_iter"] - 1
+        bad = [] if set(crf.values()) == {steps} else ["launches"]
+        if not np.all((r["acceptance"] > 0.05) & (r["acceptance"] < 0.95)):
+            bad.append("acceptance")
+        return (f"{r['n_iter']} iters x {len(r['acceptance'])} chains at "
+                f"{r['grid']}^2 in {r['seconds']:.1f} s, acceptance "
+                f"{np.round(r['acceptance'], 3).tolist()}, split R-hat "
+                f"{r['split_rhat']:.4f}", bad)
+    if tag == "04":
+        steps = r["n_iter"] - 1
+        bad = [] if launches.get("chain_draws") == steps else ["draws"]
+        if set(sgs.values()) != {steps}:
+            bad.append("launches")
+        return (f"{r['n_iter']} iters x 2 chains at {r['grid']}^2 from "
+                f"{'03' if r['from_03'] else 'fresh'} beds in "
+                f"{r['seconds']:.1f} s, acceptance "
+                f"{np.round(r['acceptance'], 3).tolist()}", bad)
+    if tag == "05":
+        return (f"{r['iterations']} iterations x {r['n_chains']} chains from "
+                f"03's checkpoint, figure {r['figure']}, rank-normalized "
+                f"R-hat {r.get('rank_normalized_rhat', float('nan')):.4f}, "
+                f"ESS bulk {r.get('ess_bulk', float('nan')):.1f} / tail "
+                f"{r.get('ess_tail', float('nan')):.1f}",
+                [] if "ess_bulk" in r else ["diagnostics"])
+    if tag == "06":
+        s = r["stats"]
+        scale = {k: r[k] for k in VALIDATION_SCALE}
+        bad = list(r["failures"])
+        if scale != VALIDATION_SCALE:
+            bad.append(f"scale {scale}")
+        if set(crf.values()) != {r["crf_iters"]}:
+            bad.append("CRF launches")
+        if set(sgs.values()) != {r["sgs_iters"]}:
+            bad.append("SGS launches")
+        return (f"{r['n_chains']} chains x {r['grid']}^2, {r['crf_iters']} "
+                f"CRF + {r['sgs_iters']} SGS iters: CRF "
+                f"{s['crf_chain_it_s']:,.0f} chain-it/s, SGS "
+                f"{s['sgs_chain_it_s']:,.0f} chain-it/s, gap closed "
+                f"{1 - s['gap_final'] / s['gap_initial']:.4f}, RMSE "
+                f"{s['rmse_initial']:.2f} -> {s['rmse_posterior_mean']:.2f}"
+                f" m, {'ALL PASS' if not r['failures'] else r['failures']}",
+                bad)
+    if tag == "07":
+        s = r["stats"]
+        bad = [] if s["grid"] == [900, 900] else ["grid"]
+        if set(crf.values()) != {399}:
+            bad.append("launches")
+        return (f"{s['grid'][0]}x{s['grid'][1]} native, 4 chains x 400 "
+                f"iters in {s['seconds']:.1f} s, acceptance "
+                f"{s['acceptance']:.3f}, another grid's resume refused",
+                bad)
+    if tag == "08":
+        return (f"CLI {r['n_iter'][0]} then {r['n_iter'][1]} iters at "
+                f"{r['grid']}^2 ({r['seconds'][0]:.1f} s, "
+                f"{r['seconds'][1]:.1f} s), first run reused bitwise "
+                f"{r['bitwise_reused']}",
+                [] if r["bitwise_reused"] else ["resume"])
+    return (f"2 gloo ranks on card 0 ({r['seconds']:.1f} s): same global "
+            f"trace {r['same_trace']}, {len(r['checkpoint_files'])} files "
+            f"({[f for f in r['checkpoint_files'] if 'checkpoint' in f]}), "
+            f"reassembled {tuple(r['reassembled'])}",
+            [] if r["same_trace"] and tuple(r["reassembled"]) == (4, 96, 96)
+            else ["ranks"])
+
+
+def phase_examples(card):
+    """The tutorial workflow (``[examples]``, module docstring phase 21):
+    ``examples/torch_port`` 01 -> 09 in-process through their
+    ``main(device="cuda")`` at their default scale, into one temporary
+    directory under the checkout, each example's kernel launches counted
+    from zero."""
+    import os
+
+    import torch
+
+    kernels = {k.__name__: k for family in ("crf", "sgs")
+               for k in _dist_kernels(family)}
+    saved = {k: os.environ.pop(k, None)
+             for k in ("MCMC_TPU_EXAMPLE_OUT", "MCMC_TPU_EXAMPLE_QUICK")}
+    failed = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                         dir=ROOT) as tmp:
+            os.environ["MCMC_TPU_EXAMPLE_OUT"] = tmp
+            for name in EXAMPLE_RUNS:
+                torch.cuda.empty_cache()
+                for k in kernels.values():
+                    k.launches = 0
+                t0 = time.perf_counter()
+                result = _example_module(name).main(device=DEVICE)
+                seconds = time.perf_counter() - t0
+                launches = {n: k.launches for n, k in kernels.items()
+                            if k.launches}
+                summary, bad = _example_gates(name, result, launches)
+                print(f"[examples] {name}: {summary} | launches {launches}"
+                      f" | {seconds:.1f} s ({card})", flush=True)
+                failed += [f"{name[:2]}: {b}" for b in bad]
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    if failed:
+        raise RuntimeError(f"[examples] failed gates: {failed}")
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
                watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
@@ -3835,6 +4002,9 @@ def main():
     t0 = time.perf_counter()
     phase_dist(p, card)
     print(f"[dist] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_examples(card)
+    print(f"[examples] phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": kernel, "route": "cuda",
         "source": "mcmc_tpu_torch/ops/csrc/" + source,

@@ -16,10 +16,13 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mcmc_tpu_torch"
-# files that run on a machine without JAX: the package, the chip smoke
-# script, the card tests with their helpers and the ranks' workers
+# files that run on a machine without JAX: the package, its examples, the
+# chip smoke script, the card tests with their helpers and the ranks'
+# workers
 NO_JAX_FILES = sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
+    + [p.relative_to(ROOT).as_posix()
+       for p in (ROOT / "examples" / "torch_port").glob("*.py")]
     + ["chip_smoke.py", "tests/test_torch_cuda.py", "tests/torch_helpers.py",
        "tests/torch_dist.py"])
 
