@@ -188,7 +188,29 @@ line or more each:
    another grid refused); 08 through the CLI in a subprocess (resumed
    bitwise); 09 as two gloo ranks on card 0 under torchrun (the same
    global trace, the sharded checkpoint set reassembled).  Each line
-   gives the example's launches and seconds.
+   gives the example's launches and seconds;
+22. the segment scan (``[graph]``, after phase 9): ``run_chains`` on the
+   card replays one captured CUDA graph of ``CHUNK_STEPS`` steps
+   (``mcmc_tpu_torch/parallel/sampler.py``), and every phase above runs
+   through it.  Here each farm runs twice in this process from cloned
+   states and cloned random sources, once on ``run_chains_eager`` (the
+   plain loop) and once captured, over 58 steps (a warm-up, a capture,
+   replays and an eager rest) then 200: the CRF headline int- and
+   list-seeded, the SGS headline int- and list-seeded, the spherical SGS
+   farm and the SRF farm, then ``ChainCRF.run`` / ``ChainSGS.run`` at one
+   chain.  Gated bitwise: traces, final states and the generator's state
+   or the per-chain step; each kernel's count equal to the steps both
+   ways (a replay adds what its capture counted), and what a capture
+   counted read back from the graph itself: a ``keep_graph`` capture's
+   DOT dump holds, for each counted dispatcher, as many kernel nodes of
+   its ``__global__`` functions as the capture counted launches, and
+   none of a dispatcher it did not count.  Printed for each: µs a step
+   both ways, the idle share of 50 profiled steps both ways, capture ms,
+   graph nodes a step by kind, the added peak memory and the memory the
+   farm's graph holds (given back when it is dropped), for the single
+   chains what a finished call still holds; then a sweep of the chunk
+   length (10, 25, 50, 100 steps: capture ms, µs a replayed step), from
+   which ``CHUNK_STEPS`` is set.  No gain is claimed.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -213,6 +235,7 @@ contract ``{"ok": true, "device": ...}``.
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import re
@@ -3908,6 +3931,388 @@ def phase_examples(card):
         raise RuntimeError(f"[examples] failed gates: {failed}")
 
 
+GRAPH_SEGMENTS = (58, 200)  # [graph]: warm-up, capture, replay and rest;
+                             # then whole chunks (timed)
+GRAPH_PROFILE_STEPS = 50     # [graph]: profiled steps each way
+GRAPH_RUN_ITERS = 401        # [graph]: each single-chain run
+GRAPH_SWEEP = (10, 25, 50, 100)  # [graph]: chunk lengths swept
+# [graph]'s farms: (tag, chain maker, chains, seeding, the kernels a step)
+GRAPH_FARMS = (
+    ("crf-int", "crf", N_CHAINS, "int",
+     ("fused_window_update", "batched_normal")),
+    ("crf-list", "crf", N_CHAINS, "list",
+     ("fused_window_update", "batched_normal_keyed", "chain_draws")),
+    ("sgs-int", "sgs", SGS_CHAINS, "int",
+     ("window_extract", "window_writeback", "mix_masked_cg", "lut_interp")),
+    ("sgs-list", "sgs", SGS_CHAINS, "list",
+     ("window_extract", "window_writeback", "mix_masked_cg", "lut_interp",
+      "chain_draws")),
+    ("sph-int", "sph", SGS_CHAINS, "int",
+     ("window_extract", "window_writeback", "masked_cg", "lut_interp")),
+    ("srf-int", "srf", N_CHAINS, "int",
+     ("fused_window_update", "srf_harmonics")),
+)
+GRAPH_RUN_KERNELS = {
+    "crf": ("fused_window_update", "batched_normal_keyed", "chain_draws"),
+    "sgs": ("window_extract", "window_writeback", "mix_masked_cg",
+            "lut_interp", "chain_draws")}
+
+
+def _launch_counts():
+    """{name: launches} of every dispatcher that counts kernel launches
+    (``ops/launch_counts.COUNTED``)."""
+    from mcmc_tpu_torch.ops.launch_counts import COUNTED
+
+    return {k.__name__: k.launches for k in COUNTED}
+
+
+def _zero_launches():
+    from mcmc_tpu_torch.ops.launch_counts import COUNTED
+
+    for k in COUNTED:
+        k.launches = 0
+
+
+def _clone_stream(rng):
+    """A random source that draws what ``rng`` would, sharing nothing."""
+    import torch
+
+    from mcmc_tpu_torch.utils.rng import PerChainStreams
+
+    if isinstance(rng, PerChainStreams):
+        return PerChainStreams(keys=rng.keys.clone(), step=rng.step.clone())
+    gen = torch.Generator(device=rng.device)
+    gen.set_state(rng.get_state())
+    return gen
+
+
+def _same_bits(a, b):
+    """Two tensors equal in shape, type and every byte."""
+    import torch
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def _same_stream(a, b):
+    import torch
+
+    if isinstance(a, torch.Generator):
+        return torch.equal(a.get_state(), b.get_state())
+    return torch.equal(a.step, b.step) and torch.equal(a.keys, b.keys)
+
+
+@contextlib.contextmanager
+def _eager_loop():
+    """Inside, the one-chain runners step through ``run_chains_eager``
+    (the plain loop) instead of the captured ``run_chains``."""
+    from mcmc_tpu_torch.parallel import sampler as ps
+
+    captured = ps.run_chains
+
+    def eager(*args, graphs=None, **kw):  # the plain loop keeps no graph
+        return ps.run_chains_eager(*args, **kw)
+
+    ps.run_chains = eager
+    try:
+        yield
+    finally:
+        ps.run_chains = captured
+
+
+def _graph_nodes(static, consts, states, rng, tag):
+    """Nodes a step of a chunk captured from ``states`` and ``rng`` (which
+    it advances), all and by kind, from the CUDA graph's DOT dump (a
+    ``run_chains_chunked`` call through ``capture_graph(keep_graph=
+    True)``); and the capture's launch counts read back from the graph:
+    each counted dispatcher's kernel nodes (its ``kernels``' mangled
+    names) must number the launches the capture counted, which each
+    replay adds to its count.  Raises where they differ, or where a
+    kernel node names two dispatchers."""
+    from mcmc_tpu_torch.ops.launch_counts import COUNTED
+    from mcmc_tpu_torch.parallel import sampler as ps
+
+    graphs = ps.GraphCache()
+    ps.run_chains_chunked(static, consts, states,
+                          ps.WARM_STEPS + ps.CHUNK_STEPS, rng=rng,
+                          graphs=graphs,
+                          capture=functools.partial(ps.capture_graph,
+                                                    keep_graph=True))
+    seg = graphs.graph
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_") as d:
+        path = Path(d) / "graph.dot"
+        seg.graph.debug_dump(str(path))
+        text = path.read_text()
+    graphs.drop()
+    # a node's record label opens with its kind; a kernel's next field is
+    # "ID | n (topoId: m) | <mangled symbol><<<grid, block, smem>>>"
+    records = re.findall(r'"graph_\d+_node_\d+"\[[^\n]*label="\{\s*(\w+)'
+                         r'(?:\s*\|\s*\{ID \| [^|]*\| ([^\s}]*))?', text)
+    kinds = {}
+    for kind, _ in records:
+        kinds[kind.lower()] = kinds.get(kind.lower(), 0) + 1
+    total = len(set(re.findall(r"graph_\d+_node_\d+", text)))
+    in_graph = {c.__name__: 0 for c in COUNTED}
+    for kind, symbol in records:
+        owners = [c.__name__ for c in COUNTED
+                  if kind == "KERNEL" and any(k in symbol for k in c.kernels)]
+        if len(owners) > 1:
+            raise RuntimeError(f"[graph] {tag}: kernel node {symbol[:80]} "
+                               f"names {owners}")
+        for name in owners:
+            in_graph[name] += 1
+    counted = {c.__name__: 0 for c in COUNTED}
+    counted.update({c.__name__: n for c, n in seg.launches})
+    if in_graph != counted:
+        raise RuntimeError(f"[graph] {tag}: the graph holds the kernel nodes "
+                           f"{in_graph}, its capture counted {counted}")
+    return (total / seg.steps if total else None,
+            {k: v / seg.steps for k, v in sorted(kinds.items())},
+            {k: v for k, v in in_graph.items() if v})
+
+
+def _held_mib(release):
+    """MiB of device memory allocated and reserved that ``release()``
+    gives back (the allocator's idle cache emptied before and after)."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    release()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ((a0 - torch.cuda.memory_allocated()) / 2**20,
+            (r0 - torch.cuda.memory_reserved()) / 2**20)
+
+
+def _idle(r):
+    """1 - device busy / unprofiled wall, a step (None unmeasured)."""
+    return None if r["busy"] is None else 1 - r["busy"] / r["us"]
+
+
+def _graph_farm(sampler, tag, seeding, names, card):
+    """[graph], one farm: eager and captured ``run_chains`` from cloned
+    states and streams over GRAPH_SEGMENTS, bitwise; µs a step of the
+    last segment, the idle share over GRAPH_PROFILE_STEPS profiled steps,
+    capture ms, graph nodes a step (the counted kernels' nodes held to the
+    capture's counts, ``_graph_nodes``), the added peak memory, what the
+    farm's graph holds, and the launches, each kernel once a step both
+    ways."""
+    import torch
+
+    from mcmc_tpu_torch.parallel import sampler as ps
+
+    n = sampler.n_chains
+    st0 = sampler.init(seeds=0 if seeding == "int" else _seed_list(n))
+    rng0 = sampler.generator
+    static, consts = sampler.static, sampler.consts
+    out = {}
+    graphs = ps.GraphCache()  # the captured way's, as a sampler keeps one
+    for way, run in (("eager", ps.run_chains_eager),
+                     ("graph", functools.partial(ps.run_chains,
+                                                 graphs=graphs))):
+        st, rng = _clone_state(st0), _clone_stream(rng0)
+        _zero_launches()
+        traces, us, peak = [], None, None
+        for i, steps in enumerate(GRAPH_SEGMENTS):
+            torch.cuda.synchronize()
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            st, tr = run(static, consts, st, steps, rng=rng)
+            torch.cuda.synchronize()
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            else:
+                us = (time.perf_counter() - t0) / steps * 1e6
+            traces.append(tr)
+        out[way] = dict(run=run, state=st, rng=rng, traces=traces, us=us,
+                        peak=peak, launches=_launch_counts(),
+                        capture_ms=(graphs.graph.capture_ms
+                                    if way == "graph" else None))
+    e, g = out["eager"], out["graph"]
+    same = {
+        "traces": all(set(a) == set(b) and all(_same_bits(a[k], b[k])
+                                               for k in a)
+                      for a, b in zip(e["traces"], g["traces"])),
+        "state": all(_same_bits(getattr(e["state"], f.name),
+                                getattr(g["state"], f.name))
+                     for f in dataclasses.fields(e["state"])),
+        "stream": _same_stream(e["rng"], g["rng"])}
+    for r in (e, g):  # the captured way replays the graph its cache keeps
+        busy, wall, ops = _device_busy(lambda: r["run"](
+            static, consts, r["state"], GRAPH_PROFILE_STEPS, rng=r["rng"]))
+        r.update(idle=None if busy is None else 1 - busy / wall,
+                 busy=None if busy is None else busy / GRAPH_PROFILE_STEPS,
+                 ops=ops / GRAPH_PROFILE_STEPS)
+    held = _held_mib(graphs.drop)
+    steps = sum(GRAPH_SEGMENTS)
+    want = {k: steps if k in names else 0 for k in e["launches"]}
+    nodes, kinds, in_graph = _graph_nodes(static, consts, g["state"],
+                                          g["rng"], tag)
+    print(f"[graph] {tag} ({n} chains x {GRID}^2): bitwise {same} | "
+          f"us a step eager {e['us']:.1f}, graph {g['us']:.1f} | idle share "
+          f"of the profiled wall eager {e['idle']}, graph {g['idle']}; of "
+          f"the unprofiled wall eager {_idle(e)}, graph {_idle(g)} (device "
+          f"busy {e['busy']} / {g['busy']} us a step; device ops a step "
+          f"{e['ops']:.1f} / {g['ops']:.1f}) | capture {g['capture_ms']:.1f} ms for "
+          f"{ps.CHUNK_STEPS} steps | graph nodes a step {nodes} {kinds}, "
+          f"counted kernels' nodes a capture {in_graph} = its counts | "
+          f"added peak memory {(g['peak'] - e['peak']) / 2**20:.1f} MiB "
+          f"(eager {e['peak'] / 2**30:.2f} GiB) | the farm's graph held "
+          f"{held[0]:.1f} MiB allocated, {held[1]:.1f} MiB reserved, given "
+          f"back on drop | launches in {steps} steps "
+          f"{ {k: v for k, v in g['launches'].items() if v} } ({card})",
+          flush=True)
+    if not all(same.values()):
+        raise RuntimeError(f"[graph] {tag}: the captured loop is not the "
+                           f"eager loop bit for bit: {same}")
+    for way in ("eager", "graph"):
+        if out[way]["launches"] != want:
+            raise RuntimeError(f"[graph] {tag} {way} launches "
+                               f"{out[way]['launches']}, want {want}")
+    return {"us": (e["us"], g["us"]), "idle": (_idle(e), _idle(g)),
+            "capture_ms": g["capture_ms"], "nodes": nodes}
+
+
+def _graph_run(chain, family, card):
+    """[graph], a single-chain run: ``Chain*.run(GRAPH_RUN_ITERS)`` on the
+    eager loop and on the captured one, the same seed: the same dict bit
+    for bit (final state included), the stream at the same step, each
+    kernel once a step both ways; it/s of the whole call each way, the
+    idle share of a whole profiled call of GRAPH_PROFILE_STEPS steps (a
+    profile of the long call holds ~10^5 device events), and the device
+    memory a finished call still holds beside its final state (its farm
+    and graph go with the call)."""
+    import gc
+
+    import torch
+
+    seed = _seed_list(1)[0]
+    steps = GRAPH_RUN_ITERS - 1
+    res = {}
+    for way in ("eager", "graph"):
+        ctx = _eager_loop() if way == "eager" else contextlib.nullcontext()
+        with ctx:
+            _zero_launches()
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = chain.run(GRAPH_RUN_ITERS, seed=seed, device=DEVICE)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = _launch_counts()
+            gc.collect()
+            held = torch.cuda.memory_allocated() - before
+            step = chain._streams.step.clone()
+            busy, wall, _ = _device_busy(lambda: chain.run(
+                GRAPH_PROFILE_STEPS + 1, seed=seed, device=DEVICE))
+        res[way] = dict(out=out, its=steps / elapsed, launches=launches,
+                        step=step, held=held,
+                        idle=None if busy is None else 1 - busy / wall)
+    e, g = res["eager"], res["graph"]
+    fs_e, fs_g = e["out"]["final_state"], g["out"]["final_state"]
+    state_bytes = sum(getattr(fs_g, f.name).nbytes
+                      for f in dataclasses.fields(fs_g)
+                      if getattr(fs_g, f.name).is_cuda)
+    same = {"run": _runs_equal(e["out"], g["out"]),
+            "state": all(_same_bits(getattr(fs_e, f.name),
+                                    getattr(fs_g, f.name))
+                         for f in dataclasses.fields(fs_e)),
+            "stream": torch.equal(e["step"], g["step"])}
+    want = {k: steps if k in GRAPH_RUN_KERNELS[family] else 0
+            for k in e["launches"]}
+    print(f"[graph] {type(chain).__name__}.run({GRAPH_RUN_ITERS}) at "
+          f"{GRID}^2: bitwise {same} | it/s eager {e['its']:,.0f}, graph "
+          f"{g['its']:,.0f} (whole calls, build and capture included) | "
+          f"idle share of a whole {GRAPH_PROFILE_STEPS}-step call eager "
+          f"{e['idle']}, graph {g['idle']} | a finished call holds "
+          f"{e['held'] / 2**20:.2f} / {g['held'] / 2**20:.2f} MiB eager / "
+          f"graph (its final state {state_bytes / 2**20:.2f} MiB) | "
+          f"launches { {k: v for k, v in g['launches'].items() if v} } "
+          f"({card})", flush=True)
+    if not all(same.values()):
+        raise RuntimeError(f"[graph] {family} run: the captured loop is not "
+                           f"the eager loop bit for bit: {same}")
+    for way in ("eager", "graph"):
+        if res[way]["launches"] != want:
+            raise RuntimeError(f"[graph] {family} run {way} launches "
+                               f"{res[way]['launches']}, want {want}")
+    return {"its": (e["its"], g["its"]), "idle": (e["idle"], g["idle"])}
+
+
+def _chunk_sweep(samplers, card):
+    """[graph]'s sweep of the chunk length (``CHUNK_STEPS`` is set from
+    it): for each of GRAPH_SWEEP's lengths, set as ``CHUNK_STEPS`` for the
+    while, a fresh int-seeded farm of each family captures one chunk, then
+    replays GRAPH_SEGMENTS[-1] steps: capture ms and µs a replayed step."""
+    import torch
+
+    from mcmc_tpu_torch.parallel import sampler as ps
+
+    chunk_steps = ps.CHUNK_STEPS
+    try:
+        for family, sampler in samplers.items():
+            line = []
+            for chunk in GRAPH_SWEEP:
+                ps.CHUNK_STEPS = chunk
+                states = sampler.init(seeds=0)
+                steps = -(-GRAPH_SEGMENTS[-1] // chunk) * chunk
+                sampler.run_segment(states, ps.WARM_STEPS + chunk)
+                capture_ms = sampler.graphs.graph.capture_ms
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sampler.run_segment(states, steps)
+                torch.cuda.synchronize()
+                us = (time.perf_counter() - t0) / steps * 1e6
+                line.append(f"{chunk}: capture {capture_ms:.1f} ms, "
+                            f"replayed {us:.1f} us a step")
+                sampler.graphs.drop()
+            print(f"[graph] chunk sweep, {family} {sampler.n_chains} chains "
+                  f"x {GRID}^2: {' | '.join(line)} ({card})", flush=True)
+    finally:
+        ps.CHUNK_STEPS = chunk_steps
+
+
+def phase_graph(p, chain, sgs_chain, card):
+    """[graph]: each farm and single-chain run eager and captured in this
+    process (``_graph_farm``, ``_graph_run``), bitwise, then the sweep of
+    the chunk length; no gain claimed.  Returns {tag: numbers}."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+
+    chains = {"crf": chain, "sgs": sgs_chain,
+              "sph": make_spherical_chain(p), "srf": make_srf_chain(p)}
+    samplers = {}
+    rows = {}
+    for tag, family, n, seeding, names in GRAPH_FARMS:
+        t0 = time.perf_counter()
+        if family not in samplers:
+            samplers[family] = MultiChainSampler(chains[family], n,
+                                                 device=DEVICE)
+        rows[tag] = _graph_farm(samplers[family], tag, seeding, names, card)
+        torch.cuda.empty_cache()
+        print(f"[graph] {tag} {time.perf_counter() - t0:.1f} s", flush=True)
+    for family in ("crf", "sgs"):
+        t0 = time.perf_counter()
+        rows[f"run-{family}"] = _graph_run(chains[family], family, card)
+        print(f"[graph] run-{family} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    _chunk_sweep({k: samplers[k] for k in ("crf", "sgs")}, card)
+    print(f"[graph] chunk sweep {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
                watch=(), tag="profile"):
     """Device-busy share of a short steady window from torch.profiler,
@@ -3920,7 +4325,10 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    states, _ = sampler.run_segment(states, n_steps)  # warm
+    from mcmc_tpu_torch.parallel.sampler import CHUNK_STEPS, WARM_STEPS
+
+    n_steps = -(-n_steps // CHUNK_STEPS) * CHUNK_STEPS  # whole replays
+    states, _ = sampler.run_segment(states, WARM_STEPS + CHUNK_STEPS)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3983,6 +4391,9 @@ def main():
         launches[kernel] = sgs_launches[kernel]
     rows["batched_normal"] = phase_noise_vs_plain(chain, card)
     phase_crf_step_vs_plain(chain, card)
+    t0 = time.perf_counter()
+    phase_graph(p, chain, sgs_chain, card)
+    print(f"[graph] phase {time.perf_counter() - t0:.1f} s", flush=True)
     rows["chain_draws"] = phase_draws_vs_plain(chain, sgs_chain, card)["sgs"]
     phase_independence(chain, sgs_chain, card)
     del chain, sgs_chain

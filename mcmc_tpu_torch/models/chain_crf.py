@@ -555,7 +555,7 @@ def run_single_chain(chain, n_iter, only_save_last_bed, info_per_iter,
     def run(st, n):
         st, tr = run_one_chain(sampler.static, sampler.consts, st, n,
                                save_beds, sampler.generator, sampler.impl,
-                               "run")
+                               "run", graphs=sampler.graphs)
         return st, {k: host_copy(v) for k, v in tr.items()}
 
     final, traces = _run_segmented(run, state, int(n_iter),

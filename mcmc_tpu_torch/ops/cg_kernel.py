@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .covariance import eval_mixture_static, mixture_families
+from .launch_counts import counted
 
 _MAX_TERMS = 16     # per mixture family (the fit's dictionaries have <= 13)
 
@@ -299,6 +300,7 @@ def _launch(fn, mask, pointers, params):
     return out
 
 
+@counted("13mix_cg_kernel")
 def mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
     """Mixture-system CG (module docstring): the operands checked, then
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
@@ -321,9 +323,7 @@ def mix_masked_cg(iaf, jaf, mask, rhs, eps, mix, n_iters: int = 64):
     return out
 
 
-mix_masked_cg.launches = 0
-
-
+@counted("16masked_cg_kernel")
 def masked_cg(Sigma, mask, rhs, eps, n_iters: int = 48):
     """CG on a given Sigma (module docstring): the operands checked, then
     the plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
@@ -339,6 +339,3 @@ def masked_cg(Sigma, mask, rhs, eps, n_iters: int = 48):
                   (N, K, int(n_iters)))
     masked_cg.launches += 1
     return out
-
-
-masked_cg.launches = 0

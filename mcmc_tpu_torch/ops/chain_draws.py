@@ -56,6 +56,7 @@ import functools
 import numpy as np
 import torch
 
+from .launch_counts import counted
 from .noise_kernel import _mulhilo, box_muller, check_streams, keyed_words
 
 UNIFORM, INDEX, NORMAL = 0, 1, 2
@@ -228,6 +229,7 @@ def launch_draws(lib, keys, step, plan: DrawPlan):
     return fout, iout
 
 
+@counted("12tiled_kernel", "11flat_kernel")
 def chain_draws(keys, step, plan: DrawPlan):
     """``plan``'s two buffers (module docstring): the operands checked,
     then the plain version for CPU keys, the CUDA kernel for CUDA keys."""
@@ -244,9 +246,6 @@ def chain_draws(keys, step, plan: DrawPlan):
     out = launch_draws(_cuda_library(), keys, step, plan)
     chain_draws.launches += 1
     return out
-
-
-chain_draws.launches = 0
 
 
 def _raise_on(lib, err, what):

@@ -1,0 +1,28 @@
+"""The kernel dispatchers that count their launches, in one registry.
+
+A dispatcher joins where it is defined, ``@counted(fragment, ...)``: its
+``launches`` starts at 0 and it adds one where it launches its kernel, and
+nowhere else; ``kernels`` names the ``__global__`` functions it launches
+by a fragment of their mangled symbol (the length-prefixed name, with the
+template arguments where two dispatchers launch one template), as a CUDA
+graph's dump or a profile shows them.  ``COUNTED`` holds every dispatcher
+of the modules imported so far, so any dispatcher that has run is in it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+COUNTED: list = []
+
+
+def counted(*kernels: str) -> Callable:
+    """Register the decorated dispatcher, which launches ``kernels``."""
+
+    def register(fn: Callable) -> Callable:
+        fn.launches = 0
+        fn.kernels = kernels
+        COUNTED.append(fn)
+        return fn
+
+    return register

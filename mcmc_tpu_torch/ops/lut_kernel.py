@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from .launch_counts import counted
 from .transforms import lut_clip_bound, lut_lookup
 
 
@@ -118,6 +119,7 @@ def launch_lut(lib, x, lo: float, scale: float, table):
     return out
 
 
+@counted("10lut_kernel")
 def lut_interp(x, lo: float, scale: float, table):
     """LUT interpolation (module docstring): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
@@ -128,6 +130,3 @@ def lut_interp(x, lo: float, scale: float, table):
     out = launch_lut(_cuda_library(), x, lo, scale, table)
     lut_interp.launches += 1
     return out
-
-
-lut_interp.launches = 0

@@ -46,6 +46,8 @@ import ctypes
 import numpy as np
 import torch
 
+from .launch_counts import counted
+
 M32 = 0xFFFFFFFF
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)   # Philox4x32 round multipliers
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)   # Weyl key increments
@@ -174,6 +176,7 @@ def _cuda_library():
     return lib
 
 
+@counted("12noise_kernelILb0E")
 def batched_normal(seed, n: int, rows: int, cols: int):
     """(n, rows, cols) float32 standard normals (module docstring): the
     seed and sizes checked, then the plain version for a CPU seed, the
@@ -204,9 +207,6 @@ def batched_normal(seed, n: int, rows: int, cols: int):
     return out
 
 
-batched_normal.launches = 0
-
-
 def check_streams(keys, step):
     """Refuse per-chain keys and a step counter the kernels do not take."""
     if keys.device.type not in ("cpu", "cuda"):
@@ -221,6 +221,7 @@ def check_streams(keys, step):
         raise ValueError(f"step is on {step.device}, keys on {keys.device}")
 
 
+@counted("12noise_kernelILb1E")
 def batched_normal_keyed(keys, step, slot: int, rows: int, cols: int):
     """(N, rows, cols) float32 standard normals, chain c from its own key
     (module docstring): the operands checked, then the plain version for
@@ -250,6 +251,3 @@ def batched_normal_keyed(keys, step, slot: int, rows: int, cols: int):
                            f"({err})")
     batched_normal_keyed.launches += 1
     return out
-
-
-batched_normal_keyed.launches = 0

@@ -33,6 +33,8 @@ import ctypes
 
 import torch
 
+from .launch_counts import counted
+
 
 def _window_index(sx, sy, SB: int):
     """(N, SB, 1) rows and (N, 1, SB) cols of each chain's window."""
@@ -177,6 +179,7 @@ def launch_writeback(fn, fields, new_w, sx, sy, write):
     return fields
 
 
+@counted("21window_extract_kernel")
 def window_extract(cons, fields, sx, sy, SB: int):
     """Window extract (module docstring): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors."""
@@ -190,6 +193,7 @@ def window_extract(cons, fields, sx, sy, SB: int):
     return out
 
 
+@counted("23window_writeback_kernel")
 def window_writeback(fields, new_w, sx, sy, write):
     """Window writeback (module docstring), in place: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors."""
@@ -201,7 +205,3 @@ def window_writeback(fields, new_w, sx, sy, write):
                      sx, sy, write)
     window_writeback.launches += 1
     return fields
-
-
-window_extract.launches = 0
-window_writeback.launches = 0

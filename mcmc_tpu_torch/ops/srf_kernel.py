@@ -44,6 +44,8 @@ import ctypes
 import numpy as np
 import torch
 
+from .launch_counts import counted
+
 PLAIN_BUDGET_BYTES = {"cuda": 256 << 20, "cpu": 32 << 20}
 MAX_CHAINS = 65535          # the grid's y dimension holds the chain
 
@@ -156,6 +158,7 @@ def launch_srf(lib, kv, z1, z2, ny: int, nx: int, resolution: float):
     return out
 
 
+@counted("10srf_kernel")
 def srf_harmonics(kv, z1, z2, ny: int, nx: int, resolution: float):
     """The (n, ny, nx) float32 harmonic sums (module docstring): the
     operands checked, then the plain version for CPU tensors, the CUDA
@@ -176,6 +179,3 @@ def srf_harmonics(kv, z1, z2, ny: int, nx: int, resolution: float):
                      z2.contiguous(), ny, nx, resolution)
     srf_harmonics.launches += 1
     return out
-
-
-srf_harmonics.launches = 0

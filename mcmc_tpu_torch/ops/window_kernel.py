@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from .launch_counts import counted
 from .spectral import block_mask, standardize_masked
 
 # the shared memory one block of an H100 can opt in to (227 KB)
@@ -247,6 +248,7 @@ def window_kernel_info(B: int) -> dict:
                             "resident_ctas_per_sm"), list(out))))
 
 
+@counted("19fused_window_kernel")
 def fused_window_update(consts, fields, fraw, edge_masks, geom, fvals, *,
                         use_data_loss=False, prefinished=False):
     """Fused window update (module docstring): the plain version for CPU
@@ -275,6 +277,3 @@ def fused_window_update(consts, fields, fraw, edge_masks, geom, fvals, *,
     _raise_on(lib, err, "launch")
     fused_window_update.launches += 1
     return out[0], out[1], out[2]
-
-
-fused_window_update.launches = 0

@@ -400,7 +400,9 @@ class ShardedCRF:
 
     def run(self, beds, n_iter: int, rng):
         """``n_iter`` steps from this rank's beds on the whole batch's
-        ``rng``: (beds', losses (C, n_iter), steps (C, n_iter))."""
+        ``rng``: (beds', losses (C, n_iter), steps (C, n_iter)).  An eager
+        loop, not ``run_chains``' captured graph: every step's halo
+        ``all_gather`` and row-sum ``all_reduce`` go through the host."""
         state, loss, comp = self.init(beds)
         n_iter = int(n_iter)
         C = state.shape[0]

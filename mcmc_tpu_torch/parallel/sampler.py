@@ -14,6 +14,25 @@ Both chain families run here: a ``ChainCRF`` steps through
 chunked launches (``scan_chunked``) and grid auto-padding, which were TPU
 workarounds.
 
+The segment scan.  The JAX package runs a segment as one ``lax.scan``
+inside ``jax.jit``: one device program, no host in the loop.  Here, on the
+card, ``run_chains`` runs the steps of a segment as replays of one CUDA
+graph of ``CHUNK_STEPS`` consecutive steps (``run_chains_chunked``): the
+first ``WARM_STEPS`` steps run eagerly (they build the kernels, cuFFT's
+plans and the caches a step fills once), then the chunk is captured, then
+replayed, and the steps left over run eagerly.  Every step updates the
+caller's state tensors in place, so a replay continues from the last one;
+the graph writes its rows into staging buffers that one copy a trace key
+moves into the segment's traces.  The owner of a farm keeps its graph: a
+``MultiChainSampler`` holds a ``GraphCache`` and passes it to every
+segment, so later calls on the same state object and stream replay the
+graph captured once; other operands capture anew, and ``init`` and
+``restore_generator`` drop it.  A call given no cache captures for itself
+alone.  The steps launch the same kernels in the same order either way,
+so the traces, the states and the random streams come out bit for bit
+those of the eager loop, ``run_chains_eager``, the plain version that CPU
+tensors run.  A capture or replay that fails raises.
+
 Over several ranks (one process a card, ``parallel/distributed.py``) the
 farm is sharded on a ``chains`` mesh: in a world of more than one rank the
 sampler builds one over every rank unless given one, and refuses a chain
@@ -47,6 +66,7 @@ keyword-only ``rng`` where the reference's states carry keys) and
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Optional
@@ -58,6 +78,7 @@ from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
                                 host_copy, init_state, make_step)
 from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                                 make_sgs_step, sgs_init_state)
+from ..ops.launch_counts import COUNTED
 from ..utils.progress import MultiChainProgress
 from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
                          generator_kind, generator_state, is_seed_list,
@@ -68,7 +89,14 @@ from .mesh import gather_rows
 
 
 RUN_CHAINS_FORM = ("run_chains(static, consts, states, n_steps, "
-                   "save_beds=False, *, rng, impl='auto')")
+                   "save_beds=False, *, rng, impl='auto', graphs=None)")
+
+WARM_STEPS = 1    # eager steps of a segment before its chunk is captured
+# Steps a captured graph replays.  On the card (chip_smoke.py [graph]'s
+# sweep) a replayed step takes the same time at 10 to 100 steps a graph,
+# while the capture's time grows with them and a new graph's segment runs
+# up to CHUNK_STEPS - 1 steps eagerly after it: the shortest chunk wins.
+CHUNK_STEPS = 10
 
 
 def check_rng(rng, form: str) -> None:
@@ -121,9 +149,9 @@ def initial_row(consts, states, save_beds: bool = False) -> dict:
         samples = samples + consts.trend[sij[:, 0], sij[:, 1]]
     loss_data = getattr(states, "loss_data",
                         torch.zeros_like(states.loss_mc))
-    row = {
-        "loss_mc": states.loss_mc,
-        "loss_data": loss_data,
+    row = {  # copies: a captured segment updates the state's tensors
+        "loss_mc": states.loss_mc.clone(),
+        "loss_data": loss_data.clone(),
         "loss": states.loss_mc + loss_data,
         "step": torch.zeros(n, dtype=torch.bool, device=device),
         "block": torch.full((n, 4), float("nan"), device=device),
@@ -134,32 +162,59 @@ def initial_row(consts, states, save_beds: bool = False) -> dict:
     return {k: v[None] for k, v in row.items()}
 
 
+def family_step(static, impl: str = "auto"):
+    """The batched step of ``static``'s family: ``make_step`` for a
+    ``CRFStatic``, ``make_sgs_step`` for an ``SGSStatic``."""
+    if isinstance(static, SGSStatic):
+        return make_sgs_step(static, impl)
+    if isinstance(static, CRFStatic):
+        return make_step(static, impl)
+    raise TypeError(f"{RUN_CHAINS_FORM}: static must be a CRFStatic or "
+                    f"an SGSStatic, got {type(static).__name__}")
+
+
 def run_chains(static, consts, states, n_steps: int, save_beds: bool = False,
-               *, rng=None, impl: str = "auto"):
+               *, rng=None, impl: str = "auto",
+               graphs: Optional[GraphCache] = None):
     """Advance a batch of chains ``n_steps`` MH steps, the reference's
     ``run_chains`` (``mcmc_tpu/parallel/sampler.py:39``) with its
     arguments in its order.
 
     Both chain families: ``static`` is a ``CRFStatic`` or an
     ``SGSStatic``, which picks the step (``make_step`` /
-    ``make_sgs_step``).  ``states`` has a leading chain axis and is
-    updated in place.  ``rng`` (keyword-only, required) is the port's
-    random source in place of the key the reference's states carry: a
-    ``torch.Generator``, or per-chain streams whose step counter advances
-    once a step.  ``impl``: "auto" runs the CUDA kernels for CUDA tensors
-    and their plain versions for CPU ones, "eager" always the plain
-    versions, "fused" the kernels or raises; the reference's "xla" is
-    refused.  Returns (states, traces) with time-major device traces of
-    shape (n_steps, n_chains, ...); ``save_beds`` adds ``traces["bed"]``,
-    every step's ``full_bed``."""
+    ``make_sgs_step``).  ``states`` has a leading chain axis.  ``rng``
+    (keyword-only, required) is the port's random source in place of the
+    key the reference's states carry: a ``torch.Generator``, or per-chain
+    streams whose step counter advances once a step.  ``impl``: "auto"
+    runs the CUDA kernels for CUDA tensors and their plain versions for
+    CPU ones, "eager" always the plain versions, "fused" the kernels or
+    raises; the reference's "xla" is refused.  Returns (states, traces)
+    with time-major device traces of shape (n_steps, n_chains, ...);
+    ``save_beds`` adds ``traces["bed"]``, every step's ``full_bed``.
+
+    CUDA states run through a captured graph (``run_chains_chunked``,
+    module docstring) and come back as the object passed in, its tensors
+    updated in place; ``graphs`` (keyword-only) is the caller's
+    ``GraphCache``, kept across calls, else the graph serves this call
+    alone.  CPU states run the eager loop (``run_chains_eager``).  Both
+    give the same bits."""
     check_rng(rng, RUN_CHAINS_FORM)
-    if isinstance(static, SGSStatic):
-        step = make_sgs_step(static, impl)
-    elif isinstance(static, CRFStatic):
-        step = make_step(static, impl)
-    else:
-        raise TypeError(f"{RUN_CHAINS_FORM}: static must be a CRFStatic or "
-                        f"an SGSStatic, got {type(static).__name__}")
+    if states.fields.device.type != "cuda":
+        return run_chains_eager(static, consts, states, n_steps, save_beds,
+                                rng=rng, impl=impl)
+    return run_chains_chunked(static, consts, states, n_steps, save_beds,
+                              rng=rng, impl=impl, graphs=graphs)
+
+
+def run_chains_eager(static, consts, states, n_steps: int,
+                     save_beds: bool = False, *, rng=None,
+                     impl: str = "auto"):
+    """``run_chains`` as a Python loop that launches every op of every
+    step: the plain version of the captured loop, and what CPU states
+    run.  ``states.fields`` is updated in place; the other state tensors
+    are new each step, and the returned state is the last step's."""
+    check_rng(rng, RUN_CHAINS_FORM)
+    step = family_step(static, impl)
     n_steps = int(n_steps)
     bufs = trace_buffers(static, states.fields.shape[0], n_steps,
                          states.fields.device, save_beds)
@@ -175,13 +230,187 @@ def run_chains(static, consts, states, n_steps: int, save_beds: bool = False,
     return states, bufs
 
 
+def capture_graph(body: Callable, generator=None, keep_graph: bool = False):
+    """A ``torch.cuda.CUDAGraph`` of ``body()``'s CUDA work, captured on a
+    side stream; ``generator`` (a CUDA ``torch.Generator``, or None) is
+    registered first, so that each replay draws on from where the last
+    draw left it, as the eager calls would.  ``keep_graph`` keeps the
+    captured graph beside its instantiation (for ``debug_dump``)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    if generator is not None:
+        graph.register_generator_state(generator)
+    # thread_local: a capture-unsafe call of another thread of the process
+    # (a process group's watchdog, the profiler) does not void the capture
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        body()
+    if keep_graph:
+        graph.instantiate()
+    return graph
+
+
+@dataclasses.dataclass
+class SegmentGraph:
+    """A captured chunk of steps: the graph, the staging buffers it writes
+    its trace rows to, and the launches each counted dispatcher made at its
+    capture, as (dispatcher, count) pairs (``ops/launch_counts``).  ``key``
+    names the operands it ran by identity; ``operands`` holds them, so no
+    other object takes their identity, nor another tensor their memory,
+    while the graph may replay."""
+
+    key: tuple
+    operands: tuple
+    graph: object
+    staging: dict
+    launches: tuple
+    capture_ms: float
+    replays: int = 0
+
+    @property
+    def steps(self) -> int:
+        return next(iter(self.staging.values())).shape[0]
+
+    def replay(self) -> None:
+        """One replay; each dispatcher's count moves as its launches in
+        the capture did, since a replay runs no Python."""
+        self.graph.replay()
+        for counter, n in self.launches:
+            counter.launches += n
+        self.replays += 1
+
+
+class GraphCache:
+    """Where the owner of a farm keeps the graph its ``run_chains`` calls
+    replay: ``graph``, the last one captured, or None.  A call on other
+    operands replaces it; ``drop`` lets it go, and with it its hold on the
+    operands and the graph's memory."""
+
+    def __init__(self):
+        self.graph: Optional[SegmentGraph] = None
+
+    def drop(self) -> None:
+        self.graph = None
+
+
+def _operand_key(static, consts, states, rng, save_beds, impl) -> tuple:
+    """The operands a captured chunk bakes in: the objects by identity,
+    the state tensors by memory as well (a field replaced in the same
+    state object is new memory), a sharded farm's stream by its generator
+    and rows."""
+    stream = ((id(rng.generator), rng.n_total, rng.lo, rng.hi)
+              if isinstance(rng, RowSlice) else id(rng))
+    ptrs = tuple(getattr(states, f.name).data_ptr()
+                 for f in dataclasses.fields(states))
+    return (id(static), id(consts), id(states), ptrs, stream,
+            bool(save_beds), impl, CHUNK_STEPS)
+
+
+def _advance(step, consts, states, rng, save_beds: bool, rows: dict) -> None:
+    """One step of ``states`` in place: the trace row written into
+    ``rows`` ({key: (n_chains, ...) destination}), each new state tensor
+    copied into the one it replaces (``fields`` is updated in place by
+    the step itself)."""
+    new, tr = step(consts, states, rng)
+    if isinstance(rng, PerChainStreams):
+        rng.advance()
+    if save_beds:
+        tr = dict(tr, bed=full_bed(consts, new))
+    for k, row in rows.items():
+        row.copy_(tr[k])
+    for f in dataclasses.fields(new):
+        if f.name != "fields":
+            getattr(states, f.name).copy_(getattr(new, f.name))
+
+
+def _capture_segment(step, consts, states, rng, save_beds, bufs, capture,
+                     key, operands) -> SegmentGraph:
+    """Capture ``CHUNK_STEPS`` steps of ``_advance`` into staging buffers,
+    with ``capture(body, generator)``; the launch counters go back to
+    where they stood, since the capture ran nothing."""
+    staging = {k: torch.empty((CHUNK_STEPS,) + tuple(b.shape[1:]),
+                              dtype=b.dtype, device=b.device)
+               for k, b in bufs.items()}
+
+    def body():
+        for i in range(CHUNK_STEPS):
+            _advance(step, consts, states, rng, save_beds,
+                     {k: s[i] for k, s in staging.items()})
+
+    before = {c: c.launches for c in COUNTED}
+    t0 = time.perf_counter()
+    try:
+        graph = capture(body, rng.generator if isinstance(rng, RowSlice)
+                        else rng if isinstance(rng, torch.Generator)
+                        else None)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        counted = tuple((c, c.launches - before.get(c, 0)) for c in COUNTED
+                        if c.launches != before.get(c, 0))
+    finally:
+        for c in COUNTED:
+            c.launches = before.get(c, 0)
+    return SegmentGraph(key=key, operands=operands, graph=graph,
+                        staging=staging, launches=counted,
+                        capture_ms=capture_ms)
+
+
+def run_chains_chunked(static, consts, states, n_steps: int,
+                       save_beds: bool = False, *, rng=None,
+                       impl: str = "auto",
+                       graphs: Optional[GraphCache] = None,
+                       capture=capture_graph):
+    """``run_chains`` as chunks of ``CHUNK_STEPS`` steps replayed from one
+    capture (module docstring): unless ``graphs`` holds a graph of these
+    operands, ``WARM_STEPS`` eager steps, then the capture by
+    ``capture(body, generator) -> graph`` (the graph needs only a
+    ``replay()``) kept in ``graphs``; as many replays as whole chunks
+    remain, then the rest eagerly.  Returns ``(states, traces)``: the
+    object passed in, its tensors updated in place, and the traces
+    ``run_chains_eager`` gives."""
+    check_rng(rng, RUN_CHAINS_FORM)
+    step = family_step(static, impl)
+    n_steps, chunk = int(n_steps), CHUNK_STEPS
+    tensors = [getattr(states, f.name) for f in dataclasses.fields(states)]
+    if len({t.data_ptr() for t in tensors}) != len(tensors):
+        raise ValueError("the state's tensors share memory; a captured "
+                         "step writes each of them in place")
+    bufs = trace_buffers(static, states.fields.shape[0], n_steps,
+                         states.fields.device, save_beds)
+
+    def eager(lo, hi):
+        for t in range(lo, hi):
+            _advance(step, consts, states, rng, save_beds,
+                     {k: b[t] for k, b in bufs.items()})
+
+    graphs = GraphCache() if graphs is None else graphs
+    key = _operand_key(static, consts, states, rng, save_beds, impl)
+    seg = graphs.graph
+    t = 0
+    if seg is None or seg.key != key:
+        graphs.drop()  # its memory goes back before the next capture
+        seg = None
+        t = min(WARM_STEPS, n_steps)
+        eager(0, t)
+        if n_steps - t >= chunk:
+            seg = _capture_segment(step, consts, states, rng, save_beds,
+                                   bufs, capture, key,
+                                   (static, consts, states, rng))
+            graphs.graph = seg
+    while seg is not None and n_steps - t >= chunk:
+        seg.replay()
+        for k, b in bufs.items():
+            b[t:t + chunk].copy_(seg.staging[k])
+        t += chunk
+    eager(t, n_steps)
+    return states, bufs
+
+
 def run_one_chain(static, consts, state, n_iter: int, save_beds: bool,
-                  rng, impl: str, form: str):
+                  rng, impl: str, form: str,
+                  graphs: Optional[GraphCache] = None):
     """``n_iter - 1`` steps of one chain through ``run_chains``, with the
     initial state prepended as row 0 (the reference loop ``for i in
     range(1, n_iter)``, MCMC.py:1247): (state, device traces of leading
     dim ``n_iter`` and no chain axis).  ``form`` names the caller in
-    errors."""
+    errors; ``graphs`` is the caller's ``GraphCache``, if it keeps one."""
     check_rng(rng, form)
     if int(n_iter) < 1:
         raise ValueError(f"{form}: n_iter must be >= 1 (trace row 0 "
@@ -192,7 +421,7 @@ def run_one_chain(static, consts, state, n_iter: int, save_beds: bool,
                          "run_chains runs a batch")
     head = initial_row(consts, state, save_beds)
     state, tail = run_chains(static, consts, state, int(n_iter) - 1,
-                             save_beds, rng=rng, impl=impl)
+                             save_beds, rng=rng, impl=impl, graphs=graphs)
     return state, {k: torch.cat([head[k], tail[k]])[:, 0] for k in head}
 
 
@@ -280,6 +509,7 @@ class MultiChainSampler:
         self.is_sgs = isinstance(chain, ChainSGS)
         self.static, self.consts = chain.build(self.device)
         self.generator = None
+        self.graphs = GraphCache()  # the segments' captured chunk
 
     def _check_mesh(self, mesh, size: int, device) -> None:
         """Refuse a mesh a farm cannot run on: one that leaves out a rank
@@ -318,6 +548,7 @@ class MultiChainSampler:
         entropy); a None falls back to the chain's
         ``set_random_generator`` seed when it has one.
         """
+        self.graphs.drop()  # new states and stream: its graph is stale
         lo, hi = self.rows
         if seeds is None:
             seeds = self.chain.seed
@@ -392,6 +623,7 @@ class MultiChainSampler:
                                  f"streams, the sampler runs "
                                  f"{self.n_chains} chains")
             gen = gen.rows(*self.rows)
+        self.graphs.drop()  # its graph draws from the stream replaced
         self.generator = gen
 
     def stream(self):
@@ -424,7 +656,8 @@ class MultiChainSampler:
         if self.generator is None:
             raise RuntimeError("call init() before running the sampler")
         return run_chains(self.static, self.consts, states, n_steps,
-                          save_beds, rng=self.stream(), impl=self.impl)
+                          save_beds, rng=self.stream(), impl=self.impl,
+                          graphs=self.graphs)
 
     def initial_row(self, states: ChainState | SGSState,
                     save_beds: bool = False):

@@ -11,6 +11,8 @@ device.  The file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -855,3 +857,98 @@ def test_one_rank_nccl_farm_is_the_meshless_farm(cuda_device, tmp_path):
     launch("nccl", 1, tmp_path)
     assert json.loads((tmp_path / "nccl.json").read_text()) == {
         "crf": True, "sgs": True}
+
+
+# --- the segment scan: run_chains replayed from a captured CUDA graph -------
+
+def _clone_farm_state(states):
+    return dataclasses.replace(states, **{
+        f.name: getattr(states, f.name).clone()
+        for f in dataclasses.fields(states)})
+
+
+def _bytes_equal(a, b):
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeding", ["int", "list"])
+@pytest.mark.parametrize("family", ["crf", "sgs"])
+def test_captured_loop_is_the_eager_loop(cuda_device, family, seeding):
+    """``run_chains`` on the card replays a captured graph: over a first
+    call (warm-up, capture, replays, remainder) and a second (replays of
+    the graph its cache keeps) its traces, states and random stream are
+    the eager loop's bit for bit, the state is the caller's object, and
+    each kernel of the path counts one launch a step."""
+    from mcmc_tpu_torch.parallel import sampler as ps
+
+    p = small_problem()
+    chain = small_chain(p) if family == "crf" else small_sgs_chain(p)
+    sampler = MultiChainSampler(chain, N, device=cuda_device)
+    st_e = sampler.init(seeds=5 if seeding == "int" else list(range(N)))
+    rng_e = sampler.generator
+    st_g = _clone_farm_state(st_e)
+    rng_g = (PerChainStreams(keys=rng_e.keys.clone(),
+                             step=rng_e.step.clone())
+             if seeding == "list" else torch.Generator(device=cuda_device))
+    if seeding == "int":
+        rng_g.set_state(rng_e.get_state())
+    kernels = ((fused_window_update,) if family == "crf"
+               else (window_extract, window_writeback, lut_interp))
+    for k in kernels:
+        k.launches = 0
+    steps = (ps.WARM_STEPS + ps.CHUNK_STEPS + 7, 2 * ps.CHUNK_STEPS)
+    graphs = ps.GraphCache()
+    for n in steps:
+        st_e, want = ps.run_chains_eager(sampler.static, sampler.consts,
+                                         st_e, n, rng=rng_e)
+        got_state, got = ps.run_chains(sampler.static, sampler.consts, st_g,
+                                       n, rng=rng_g, graphs=graphs)
+        assert got_state is st_g
+        for k in want:
+            assert _bytes_equal(got[k], want[k]), k
+        for f in dataclasses.fields(st_e):
+            assert _bytes_equal(getattr(st_g, f.name),
+                                getattr(st_e, f.name)), f.name
+    assert graphs.graph.replays == 3
+    if seeding == "int":
+        assert torch.equal(rng_g.get_state(), rng_e.get_state())
+    else:
+        assert torch.equal(rng_g.step, rng_e.step)
+    for k in kernels:
+        assert k.launches == 2 * sum(steps), k.__name__
+
+
+@pytest.mark.cuda
+def test_restored_generator_drops_the_kept_graph(cuda_device):
+    """A checkpoint's generator state restored into the sampler replaces
+    its generator, so the graph the sampler keeps, which draws from the
+    old one, is dropped; the next segment captures anew and is the eager
+    loop's from the restored stream, bit for bit."""
+    from mcmc_tpu_torch.parallel import sampler as ps
+    from mcmc_tpu_torch.utils.rng import restore_generator
+
+    sampler = MultiChainSampler(small_chain(small_problem()), N,
+                                device=cuda_device)
+    states = sampler.init(seeds=3)
+    n = ps.WARM_STEPS + ps.CHUNK_STEPS
+    states, _ = sampler.run_segment(states, n)
+    assert sampler.graphs.graph is not None
+    kind, saved = sampler.generator_state()
+    start = _clone_farm_state(states)
+    sampler.run_segment(states, ps.CHUNK_STEPS)
+    sampler.restore_generator(kind, saved)
+    assert sampler.graphs.graph is None
+    replayed = _clone_farm_state(start)
+    got_state, got = sampler.run_segment(replayed, n)
+    assert sampler.graphs.graph is not None
+    rng = restore_generator(kind, saved, cuda_device)
+    want_state, want = ps.run_chains_eager(sampler.static, sampler.consts,
+                                           start, n, rng=rng)
+    for k in want:
+        assert _bytes_equal(got[k], want[k]), k
+    for f in dataclasses.fields(want_state):
+        assert _bytes_equal(getattr(got_state, f.name),
+                            getattr(want_state, f.name)), f.name
+    assert torch.equal(sampler.generator.get_state(), rng.get_state())
