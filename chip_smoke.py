@@ -124,8 +124,12 @@ line or more each:
    within 1 m, the bounds kept, the seeds' beds different and the same
    seed's bitwise; ``krige`` at 512^2; the same call on a 128^2 cut on
    the card and on the CPU within 5e-2 m; the beds as a 2-chain CRF
-   farm's initial beds for 50 steps; seconds a bed, host ms a chunk and
-   the device-idle share of 20 profiled chunks;
+   farm's initial beds for 50 steps, all on the captured chunk loop
+   (one CUDA graph a call, replayed a chunk); then the first bed, a
+   bounded Matern bed and the ``krige`` maps on the eager loop against
+   the captured one, bitwise, with seconds a bed, ms a chunk, capture
+   ms and added peak memory; and on each loop 20 profiled chunks'
+   Python-launched and device ops, idle share and graph nodes;
 19. the gstools-SRF proposal method (``[srf]``): the SRF kernel
    (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes as a
    separable product in 3xTF32 on the tensor cores) at the CRF headline
@@ -286,6 +290,11 @@ GEO_KW = dict(radius=50e3, num_points=32, chunk=64, half_window=40)
 GEO_SEED = 11            # [geostats]: the first bed's seed
 GEO_CUT = 128            # [geostats]: the card-vs-CPU cut of the grid
 GEO_PROFILE_CHUNKS = 20
+GEO_MATERN_S = 1.3       # [geostats]: the bounded Matérn bed (the reference's)
+# the runtime calls by which Python launches device work (profiler events)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
 GEO_FARM_STEPS = 50
 SRF_PARITY_STEPS = 10    # [srf]: the SRF step on its kernels vs plain
 SRF_SEGMENTS, SRF_SEGMENT = 2, 150  # [srf]: the SRF farm's main path
@@ -2812,51 +2821,129 @@ def _device_busy(fn):
     return (busy or None), wall_us, sum(e.count for e in events)
 
 
-def _profiled_chunks(p, vario, bounds, card):
-    """The device-idle share of GEO_PROFILE_CHUNKS chunks of the bounded
-    SGS loop at full width, as ``sgs`` runs them (``_solve_chunk``, the
-    host's truncated-normal draws, the scatter), after as many warm
-    ones."""
+def _same_array(a, b):
+    """Two numpy arrays equal in shape, type and every byte."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                               np.ascontiguousarray(b).view(np.uint8)))
+
+
+@contextlib.contextmanager
+def _geo_loops(way, keep_graph=False):
+    """Inside, ``sgs`` and ``krige`` on the card run ``way``'s chunk loops:
+    "eager" (the plain versions, every op launched from Python) or
+    "graph" (the captured ones ``sgs`` runs there, each capture timed).
+    Yields the list of (graph if ``keep_graph`` else None, capture ms)."""
+    import importlib
+
+    import torch
+
+    from mcmc_tpu_torch.utils.graphs import capture_graph
+
+    S = importlib.import_module("mcmc_tpu_torch.geostats.sgs")
+    captures = []
+
+    def capture(body, generator=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = capture_graph(body, generator, keep_graph=keep_graph)
+        captures.append((graph if keep_graph else None,
+                         (time.perf_counter() - t0) * 1e3))
+        return graph
+
+    loops = S._chunk_loops
+    S._chunk_loops = ((lambda device: (S._sgs_loop_eager,
+                                       S._krige_loop_eager))
+                      if way == "eager" else (lambda device: (
+                          functools.partial(S._sgs_loop_captured,
+                                            capture=capture),
+                          functools.partial(S._krige_loop_captured,
+                                            capture=capture))))
+    try:
+        yield captures
+    finally:
+        S._chunk_loops = loops
+
+
+def _profiled_chunks(p, vario, bounds, card, way, pinned=True):
+    """[geostats], one way ("eager" or "graph", ``_geo_loops``):
+    GEO_PROFILE_CHUNKS chunks of the bounded SGS loop at full width
+    profiled after as many warm ones, through the loop ``sgs`` runs that
+    way (the host's truncated-normal draws included): device ops,
+    Python-launched device ops (the runtime calls LAUNCH_CALLS) and
+    device-busy ms a chunk, the idle share of the profiled wall, and the
+    captured loop's graph nodes a chunk (its DOT dump).  ``pinned=False``
+    solves with torch's default batched LU (MAGMA's, eager only), not
+    the cuBLAS one ``sgs`` pins on the card (``_batched_lu``)."""
+    import importlib
+
     import torch
     from scipy.stats import truncnorm
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from mcmc_tpu_torch.geostats.sgs import (_prepare, _score_grid,
-                                             _solve_chunk)
-
-    kw = GEO_KW
-    prep = _prepare(p["xx"], p["cond_bed"], vario, None, kw["num_points"],
-                    "ok", kw["half_window"], torch.device(DEVICE))
+    S = importlib.import_module("mcmc_tpu_torch.geostats.sgs")
+    kw, per = GEO_KW, GEO_PROFILE_CHUNKS
+    dev = torch.device(DEVICE)
+    prep = S._prepare(p["xx"], p["cond_bed"], vario, None, kw["num_points"],
+                      "ok", kw["half_window"], dev)
     lo_b, hi_b = (prep["nst"].transform_np(np.broadcast_to(b, (GRID, GRID)))
                   for b in bounds)
-    zg = _score_grid(prep, DEVICE)
-    cells = prep["cells"][:2 * GEO_PROFILE_CHUNKS * kw["chunk"]]
-    cells_t = torch.as_tensor(cells, device=DEVICE)
+    zg = S._score_grid(prep, dev)
+    path = prep["cells"][:(2 * per + 1) * kw["chunk"]]
     rng = np.random.default_rng(0)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    drawn, window = [], {}
 
-    def chunks(first):
-        for c in range(first, first + GEO_PROFILE_CHUNKS):
-            sl = slice(c * kw["chunk"], (c + 1) * kw["chunk"])
-            ii, jj = cells_t[sl].unbind(1)
-            est, var = _solve_chunk(prep, zg, ii, jj, kw["radius"])
-            sd = np.maximum(np.sqrt(np.abs(var)), 1e-12)
-            lo, hi = (b[cells[sl, 0], cells[sl, 1]] for b in (lo_b, hi_b))
-            draws = truncnorm.rvs((lo - est) / sd, (hi - est) / sd, loc=est,
-                                  scale=sd, random_state=rng)
-            zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
-                                         device=DEVICE)
+    def draw(cells, est, var):
+        # est and var are on the host, so the device is idle here: the
+        # window is whole chunks, from draw `per` to draw 2 `per`
+        if len(drawn) == per:
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif len(drawn) == 2 * per:
+            torch.cuda.synchronize()
+            window["wall_us"] = (time.perf_counter() - window["t0"]) * 1e6
+            prof.stop()
+        drawn.append(len(cells))
+        sd = np.maximum(np.sqrt(np.abs(var)), 1e-12)
+        lo, hi = (b[cells[:, 0], cells[:, 1]] for b in (lo_b, hi_b))
+        return truncnorm.rvs((lo - est) / sd, (hi - est) / sd, loc=est,
+                             scale=sd, random_state=rng)
 
-    chunks(0)
-    busy, wall, n_ops = _device_busy(lambda: chunks(GEO_PROFILE_CHUNKS))
-    per = GEO_PROFILE_CHUNKS
+    lu = S._batched_lu(dev) if pinned else contextlib.nullcontext()
+    with _geo_loops(way, keep_graph=True) as captures, lu:
+        S._chunk_loops(dev)[0](prep, zg, path, kw["radius"], kw["chunk"],
+                               draw)
+    torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in on_device) or None
+    launched = sum(e.count for e in events
+                   if e.device_type == DeviceType.CPU
+                   and e.key in LAUNCH_CALLS)
+    wall = window["wall_us"]
+    nodes, kinds = (_dot_nodes(captures[0][0])[:2] if captures
+                    else (None, None))
+    row = dict(launched=launched / per,
+               ops=sum(e.count for e in on_device) / per,
+               busy_ms=None if busy is None else busy / per / 1e3,
+               wall_ms=wall / per / 1e3,
+               idle=None if busy is None else 1 - busy / wall,
+               nodes=nodes, kinds=kinds)
     idle = ("not measured (the profiler recorded no device time)"
-            if busy is None else f"{1 - busy / wall:.3f}")
-    print(f"[geostats] {per} profiled chunks of {kw['chunk']} cells at "
-          f"{GRID}^2 (window {2 * kw['half_window'] + 1}^2, "
-          f"{kw['num_points']} neighbours): {n_ops / per:.0f} device ops "
-          f"a chunk, device busy "
-          f"{(busy or 0) / per / 1e3:.3f} ms a chunk against "
-          f"{wall / per / 1e3:.3f} ms of profiled wall -> idle share {idle}"
-          f" ({card})", flush=True)
+            if busy is None else f"{row['idle']:.3f}")
+    print(f"[geostats] {way}{'' if pinned else ', torch default LU'}: "
+          f"{per} profiled chunks of {kw['chunk']} cells "
+          f"at {GRID}^2 (window {2 * kw['half_window'] + 1}^2, "
+          f"{kw['num_points']} neighbours): {row['launched']:.1f} "
+          f"Python-launched device ops a chunk, {row['ops']:.1f} device ops "
+          f"a chunk, device busy {row['busy_ms']} ms a chunk against "
+          f"{row['wall_ms']:.3f} ms of profiled wall -> idle share {idle} | "
+          f"graph nodes a chunk {nodes} {kinds} ({card})", flush=True)
+    return row
 
 
 def phase_geostats(p, card):
@@ -2869,8 +2956,14 @@ def phase_geostats(p, card):
     GRID^2 (finite maps, the mean honouring the data); the same ``sgs``
     call on a GEO_CUT^2 cut on the card and on the CPU within
     GEO_CPU_ATOL; the two beds as a 2-chain CRF farm's initial beds,
-    GEO_FARM_STEPS steps with a finite loss; seconds per bed, chunks,
-    host ms a chunk and the idle share of profiled chunks."""
+    GEO_FARM_STEPS steps with a finite loss.  All of that runs the
+    captured chunk loop, as ``sgs`` on the card does.  Then the A/B in
+    this process: the first bed, a bounded Matérn bed (s GEO_MATERN_S)
+    and the ``krige`` maps on the eager loop (the plain version) against
+    the captured loop, bitwise; seconds a bed and ms a chunk, capture ms
+    and added peak memory; and each loop's profiled chunks
+    (``_profiled_chunks``), and the eager loop's under torch's default
+    batched LU."""
     import torch
 
     from mcmc_tpu_torch import MultiChainSampler
@@ -2959,8 +3052,68 @@ def phase_geostats(p, card):
           f"TF32 {tf32} | checks {checks}", flush=True)
     if not all(checks.values()):
         raise RuntimeError(f"geostats checks failed: {checks}")
-    _profiled_chunks(p, vario, (lower, surf - 1.0), card)
-    return dict(seconds_per_bed=per_bed, chunks=n_chunks)
+
+    # the A/B: the same calls on the eager loop, and a Matérn bed both ways
+    with _geo_loops("eager"):
+        t0 = time.perf_counter()
+        exp_eager = generate_initial_beds(xx, yy, cond, vario, n_beds=1,
+                                          **beds_kw)[0]
+        t_exp_eager = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        maps_eager = krige(xx, yy, cond, vario, radius=GEO_KW["radius"],
+                           num_points=GEO_KW["num_points"],
+                           half_window=GEO_KW["half_window"], device=DEVICE)
+        t_krige_eager = time.perf_counter() - t0
+    matern = dict(vario, vtype="Matern", s=GEO_MATERN_S)
+    mat = {}
+    for way in ("graph", "eager"):
+        with _geo_loops(way) as captures:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            bed = generate_initial_beds(xx, yy, cond, matern, n_beds=1,
+                                        **beds_kw)[0]
+            mat[way] = dict(bed=bed, s=time.perf_counter() - t0,
+                            peak=torch.cuda.max_memory_allocated() - base,
+                            capture_ms=[ms for _, ms in captures])
+    mat_above = float((mat["graph"]["bed"][~m] - (surf[~m] - 1.0)).max())
+    mat_below = float((lower - mat["graph"]["bed"][~m]).max())
+    krige_chunks = -(-n_cells // 256)
+    ab = {
+        "exponential bed captured = eager bitwise": _same_array(beds[0],
+                                                                exp_eager),
+        "Matern bed captured = eager bitwise": _same_array(
+            mat["graph"]["bed"], mat["eager"]["bed"]),
+        "krige maps captured = eager bitwise": all(
+            _same_array(a, b) for a, b in zip((mean, std), maps_eager)),
+        "Matern bed within the bounds": max(mat_above, mat_below)
+        <= GEO_BOUND_ATOL,
+        "one capture a bed": len(mat["graph"]["capture_ms"]) == 1,
+    }
+    print(f"[geostats] eager -> captured chunk loop at {GRID}^2, one "
+          f"process: exponential bed {t_exp_eager:.2f} -> {per_bed:.2f} s "
+          f"({t_exp_eager / n_chunks * 1e3:.3f} -> "
+          f"{per_bed / n_chunks * 1e3:.3f} ms a chunk) | Matern s "
+          f"{GEO_MATERN_S} bed {mat['eager']['s']:.2f} -> "
+          f"{mat['graph']['s']:.2f} s ({mat['eager']['s'] / n_chunks * 1e3:.3f}"
+          f" -> {mat['graph']['s'] / n_chunks * 1e3:.3f} ms a chunk), "
+          f"capture {mat['graph']['capture_ms']} ms, peak memory above the "
+          f"start eager {mat['eager']['peak'] / 2**20:.1f} MiB, captured "
+          f"{mat['graph']['peak'] / 2**20:.1f} MiB (added "
+          f"{(mat['graph']['peak'] - mat['eager']['peak']) / 2**20:.1f} "
+          f"MiB) | krige {t_krige_eager:.2f} -> {t_krige:.2f} s a map "
+          f"({krige_chunks} chunks of 256) | Matern max above surf - 1 "
+          f"{mat_above:.3e} m, below the lower bound {mat_below:.3e} m | "
+          f"checks {ab} ({card})", flush=True)
+    if not all(ab.values()):
+        raise RuntimeError(f"geostats A/B checks failed: {ab}")
+    rows = {way: _profiled_chunks(p, vario, (lower, surf - 1.0), card, way)
+            for way in ("eager", "graph")}
+    # what the pinned cuBLAS LU costs the device a chunk against MAGMA's
+    rows["eager-default-lu"] = _profiled_chunks(
+        p, vario, (lower, surf - 1.0), card, "eager", pinned=False)
+    return dict(seconds_per_bed=per_bed, chunks=n_chunks, profiled=rows)
 
 
 def make_srf_chain(p):
@@ -4021,6 +4174,23 @@ def _eager_loop():
         ps.run_chains = captured
 
 
+def _dot_nodes(graph):
+    """(nodes, {kind: nodes}, [(KIND, kernel symbol or "")]) of a CUDA
+    graph captured with ``keep_graph=True``, from its DOT dump."""
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_") as d:
+        path = Path(d) / "graph.dot"
+        graph.debug_dump(str(path))
+        text = path.read_text()
+    # a node's record label opens with its kind; a kernel's next field is
+    # "ID | n (topoId: m) | <mangled symbol><<<grid, block, smem>>>"
+    records = re.findall(r'"graph_\d+_node_\d+"\[[^\n]*label="\{\s*(\w+)'
+                         r'(?:\s*\|\s*\{ID \| [^|]*\| ([^\s}]*))?', text)
+    kinds = {}
+    for kind, _ in records:
+        kinds[kind.lower()] = kinds.get(kind.lower(), 0) + 1
+    return len(set(re.findall(r"graph_\d+_node_\d+", text))), kinds, records
+
+
 def _graph_nodes(static, consts, states, rng, tag):
     """Nodes a step of a chunk captured from ``states`` and ``rng`` (which
     it advances), all and by kind, from the CUDA graph's DOT dump (a
@@ -4040,19 +4210,8 @@ def _graph_nodes(static, consts, states, rng, tag):
                           capture=functools.partial(ps.capture_graph,
                                                     keep_graph=True))
     seg = graphs.graph
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_") as d:
-        path = Path(d) / "graph.dot"
-        seg.graph.debug_dump(str(path))
-        text = path.read_text()
+    total, kinds, records = _dot_nodes(seg.graph)
     graphs.drop()
-    # a node's record label opens with its kind; a kernel's next field is
-    # "ID | n (topoId: m) | <mangled symbol><<<grid, block, smem>>>"
-    records = re.findall(r'"graph_\d+_node_\d+"\[[^\n]*label="\{\s*(\w+)'
-                         r'(?:\s*\|\s*\{ID \| [^|]*\| ([^\s}]*))?', text)
-    kinds = {}
-    for kind, _ in records:
-        kinds[kind.lower()] = kinds.get(kind.lower(), 0) + 1
-    total = len(set(re.findall(r"graph_\d+_node_\d+", text)))
     in_graph = {c.__name__: 0 for c in COUNTED}
     for kind, symbol in records:
         owners = [c.__name__ for c in COUNTED

@@ -18,6 +18,15 @@ computes them; the normal-score transforms (``transform_np`` /
 ``inverse_np``) and the draws stay on the host in numpy, as the JAX
 package's do.  So the loop syncs once a chunk (est and var to the host).
 
+How the chunks reach the device: on the card, as the JAX package's
+jitted ``batch_cell`` and ``scatter`` do, one CUDA graph is captured a
+call and replayed for every full chunk but the first
+(``_sgs_loop_captured``, ``_krige_loop_captured``); the first chunk runs
+eagerly (it warms the sort's and the solver's workspaces), and so do the
+last ``n mod chunk`` cells.  The eager loops (``_sgs_loop_eager``,
+``_krige_loop_eager``) launch every op from Python: they are the plain
+versions, which CPU grids run, and the captured loops give their bits.
+
 Random stream: the host generator is seeded with the same numpy uint32
 scalar as the JAX package's (the last word of its key data, ``seed mod
 2**32``), so the path permutation and every normal or truncated-normal
@@ -27,6 +36,8 @@ by float32 rounding in the solves.  ``seed=None`` draws fresh entropy.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -34,6 +45,7 @@ from ..ops.covariance import CovarianceSpec, _f32, make_rotation_matrix
 from ..ops.kriging import ok_solve_masked, sk_solve_masked
 from ..ops.neighbors import octant_sector, octant_select
 from ..ops.transforms import NormalScoreTransform
+from ..utils.graphs import capture_graph
 from ..utils.rng import resolve_device, resolve_seed
 
 
@@ -157,6 +169,146 @@ def _solve_chunk(p, zg, ii, jj, radius):
     return out[0], out[1]
 
 
+@contextlib.contextmanager
+def _batched_lu(device):
+    """For the call, the kriging solves' batched LU from cuBLAS on the
+    card (torch's "cusolver" backend: ``getrfBatched`` / ``getrsBatched``),
+    in the eager and the captured loop alike, so both give the same bits;
+    torch's default at these shapes is MAGMA's batched LU, which a CUDA
+    graph cannot capture.  Elsewhere nothing changes."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+
+
+def _sgs_loop_eager(p, zg, path, radius, chunk, draw):
+    """The SGS chunk loop with every op launched from Python, the plain
+    version of ``_sgs_loop_captured`` and what CPU grids run: a chunk's
+    (est, var) to the host, ``draw(cells, est, var)`` there, the draws
+    scattered into ``zg``."""
+    path_t = torch.as_tensor(path, dtype=torch.long, device=zg.device)
+    for start in range(0, path.shape[0], chunk):
+        ii, jj = path_t[start: start + chunk].unbind(1)
+        est, var = _solve_chunk(p, zg, ii, jj, radius)
+        draws = draw(path[start: start + chunk], est, var)
+        zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
+                                     device=zg.device)
+
+
+def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
+                       capture=capture_graph):
+    """``_sgs_loop_eager``'s bits from one captured chunk (module
+    docstring): the first chunk eagerly, then ``capture(body)`` of a
+    chunk on fixed buffers (the last chunk's scatter, then this chunk's
+    solve) replayed for every later full chunk, then the last ``n mod
+    chunk`` cells eagerly.  From Python a replayed chunk is a copy of its
+    cells, the replay, (est, var) to a pinned host buffer (the one sync)
+    and the draws back from another.  A path of fewer than two full
+    chunks has nothing to replay and runs eagerly."""
+    n, C = path.shape[0], int(chunk)
+    full = n // C
+    if full < 2:
+        return _sgs_loop_eager(p, zg, path, radius, C, draw)
+    _sgs_loop_eager(p, zg, path[:C], radius, C, draw)
+    dev = zg.device
+    pin = dev.type == "cuda"
+    path_t = torch.as_tensor(path[:full * C], dtype=torch.long, device=dev)
+    cells = torch.empty((2 * C, 2), dtype=torch.long, device=dev)
+    last, this = cells[:C].unbind(1), cells[C:].unbind(1)
+    draws = torch.empty(C, dtype=torch.float32, device=dev)
+    out = torch.empty((2, C), dtype=torch.float32, device=dev)
+    draws_h = torch.empty(C, dtype=torch.float32, pin_memory=pin)
+    out_h = torch.empty((2, C), dtype=torch.float32, pin_memory=pin)
+
+    def body():
+        zg[last] = draws
+        out[0], out[1] = p["cell"](zg, *this, p["res"], p["rot"], p["sill"],
+                                   p["nugget"], _f32(radius),
+                                   p["global_mean"])
+
+    cells.copy_(path_t[:2 * C])
+    draws.copy_(zg[last])  # the first chunk's, which the first replay rewrites
+    graph = capture(body)
+    for k in range(1, full):
+        if k > 1:
+            cells.copy_(path_t[(k - 1) * C: (k + 1) * C])
+        graph.replay()
+        out_h.copy_(out)  # waits for the replay
+        est, var = out_h.numpy().astype(float)
+        draws_h.numpy()[:] = draw(path[k * C: (k + 1) * C], est, var)
+        draws.copy_(draws_h, non_blocking=True)
+    zg[this] = draws  # the last replayed chunk's draws
+    _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
+
+
+def _krige_loop_eager(p, zg, cells, radius, chunk, est_map, var_map):
+    """``krige``'s chunk loop with every op launched from Python, the plain
+    version of ``_krige_loop_captured`` and what CPU grids run: each
+    chunk's (est, var) to the host and into ``est_map`` / ``var_map``."""
+    cells_t = torch.as_tensor(cells, dtype=torch.long, device=zg.device)
+    for start in range(0, cells.shape[0], chunk):
+        cc = cells[start: start + chunk]
+        est, var = _solve_chunk(p, zg,
+                                *cells_t[start: start + chunk].unbind(1),
+                                radius)
+        est_map[cc[:, 0], cc[:, 1]] = est
+        var_map[cc[:, 0], cc[:, 1]] = var
+
+
+def _krige_loop_captured(p, zg, cells, radius, chunk, est_map, var_map,
+                         capture=capture_graph):
+    """``_krige_loop_eager``'s bits from one captured chunk: the chunks do
+    not depend on each other, so each writes its (est, var) into device
+    maps, read back once at the end, and a replayed chunk is a copy of its
+    cells and the replay, with no sync.  The first chunk runs eagerly,
+    then ``capture(body)`` is replayed for every later full chunk, then
+    the last ``n mod chunk`` cells run eagerly."""
+    n, C = cells.shape[0], int(chunk)
+    full = n // C
+    if full < 2:
+        return _krige_loop_eager(p, zg, cells, radius, C, est_map, var_map)
+    cells_t = torch.as_tensor(cells, dtype=torch.long, device=zg.device)
+    maps = torch.zeros((2,) + tuple(zg.shape), dtype=torch.float32,
+                       device=zg.device)
+    this = torch.empty((C, 2), dtype=torch.long, device=zg.device)
+
+    def solve(ii, jj):
+        maps[:, ii, jj] = torch.stack(p["cell"](
+            zg, ii, jj, p["res"], p["rot"], p["sill"], p["nugget"],
+            _f32(radius), p["global_mean"]))
+
+    def body():
+        solve(*this.unbind(1))
+
+    this.copy_(cells_t[:C])
+    body()
+    graph = capture(body)
+    for k in range(1, full):
+        this.copy_(cells_t[k * C: (k + 1) * C])
+        graph.replay()
+    if n > full * C:
+        solve(*cells_t[full * C:].unbind(1))
+    est, var = maps[:, cells_t[:, 0], cells_t[:, 1]].cpu().numpy().astype(
+        float)
+    est_map[cells[:, 0], cells[:, 1]] = est
+    var_map[cells[:, 0], cells[:, 1]] = var
+
+
+def _chunk_loops(device):
+    """(``sgs``'s, ``krige``'s) chunk loop for a grid on ``device``: the
+    captured loops on the card, the eager loops, their plain versions,
+    elsewhere."""
+    if device.type == "cuda":
+        return _sgs_loop_captured, _krige_loop_captured
+    return _sgs_loop_eager, _krige_loop_eager
+
+
 def numpy_seed(seed) -> np.uint32:
     """The host generator's seed: ``seed mod 2**32`` as a numpy uint32,
     the last word of the JAX package's key data for ``seed`` (fresh
@@ -175,7 +327,8 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
     bounded (truncated-normal) draw path used for initial-bed generation
     below the ice surface (interpolate.py:176-187).  ``device``: where
     each chunk's solves run (the card unless the caller asks for the
-    CPU).  Returns the simulated 2D array in data units.
+    CPU; on the card the chunks replay a captured CUDA graph).  Returns
+    the simulated 2D array in data units.
     """
     device = resolve_device(device)
     p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
@@ -200,30 +353,27 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
             tb.append(np.asarray(nst.transform_np(b)))
         lo_b, hi_b = tb
 
-    zg = _score_grid(p, device)
-    path_t = torch.as_tensor(path, dtype=torch.long, device=device)
-    for start in range(0, path.shape[0], chunk):
-        cells = path[start: start + chunk]
-        ii, jj = path_t[start: start + chunk].unbind(1)
-        est, var = _solve_chunk(p, zg, ii, jj, radius)
+    def draw(cells, est, var):
+        """The host's draws at ``cells`` given (est, var), float64."""
         sd = np.sqrt(np.abs(var))
         if bounds is None:
-            draws = rng.normal(est, np.maximum(sd, 1e-12))
-        else:
-            from scipy.stats import truncnorm
+            return rng.normal(est, np.maximum(sd, 1e-12))
+        from scipy.stats import truncnorm
 
-            lo = lo_b[cells[:, 0], cells[:, 1]]
-            hi = hi_b[cells[:, 0], cells[:, 1]]
-            eq = lo == hi
-            sd_s = np.maximum(sd, 1e-12)
-            # mask degenerate bounds BEFORE calling rvs: scipy raises on
-            # a == b instead of returning the point mass
-            a = np.where(eq, -1.0, (lo - est) / sd_s)
-            b = np.where(eq, 1.0, (hi - est) / sd_s)
-            draws = np.where(eq, lo, truncnorm.rvs(
-                a, b, loc=est, scale=sd_s, random_state=rng))
-        zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
-                                     device=device)
+        lo = lo_b[cells[:, 0], cells[:, 1]]
+        hi = hi_b[cells[:, 0], cells[:, 1]]
+        eq = lo == hi
+        sd_s = np.maximum(sd, 1e-12)
+        # mask degenerate bounds BEFORE calling rvs: scipy raises on a == b
+        # instead of returning the point mass
+        a = np.where(eq, -1.0, (lo - est) / sd_s)
+        b = np.where(eq, 1.0, (hi - est) / sd_s)
+        return np.where(eq, lo, truncnorm.rvs(a, b, loc=est, scale=sd_s,
+                                               random_state=rng))
+
+    zg = _score_grid(p, device)
+    with _batched_lu(device):
+        _chunk_loops(device)[0](p, zg, path, radius, chunk, draw)
 
     # cells outside sim_mask keep the score 0, as in the JAX package
     out = np.asarray(nst.inverse_np(np.nan_to_num(zg.cpu().numpy())))
@@ -240,19 +390,12 @@ def krige(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
     device = resolve_device(device)
     p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
                  half_window, device)
-    H, W, nst, cells = p["H"], p["W"], p["nst"], p["cells"]
-    zg = _score_grid(p, device)
-    cells_t = torch.as_tensor(cells, dtype=torch.long, device=device)
-
+    H, W, nst = p["H"], p["W"], p["nst"]
     est_map = p["z0"].copy()
     var_map = np.zeros((H, W))
-    for start in range(0, cells.shape[0], chunk):
-        cc = cells[start: start + chunk]
-        est, var = _solve_chunk(p, zg,
-                                *cells_t[start: start + chunk].unbind(1),
-                                radius)
-        est_map[cc[:, 0], cc[:, 1]] = est
-        var_map[cc[:, 0], cc[:, 1]] = var
+    with _batched_lu(device):
+        _chunk_loops(device)[1](p, _score_grid(p, device), p["cells"],
+                                radius, chunk, est_map, var_map)
 
     var_map = np.where(var_map < 0, 0.0, var_map)
     mean_out = np.asarray(nst.inverse_np(est_map))

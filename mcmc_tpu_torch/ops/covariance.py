@@ -4,7 +4,8 @@ mixture fit.
 PyTorch counterpart of ``mcmc_tpu/ops/covariance.py`` (the reference's
 normalized-distance family, gstatsim_custom/covariance.py:4-29).  The
 exponential / gaussian / spherical models are closed-form; the matérn model
-is tabulated once on the host with SciPy and interpolated.
+is tabulated once on the host with SciPy, copied once to each device it is
+evaluated on, and interpolated.
 
 The JAX package evaluates the host-side covariance in **float32** (its
 ``jnp.asarray`` of a float64 numpy array gives float32), and the chain's
@@ -64,7 +65,8 @@ def make_matern_table(s: float, n_points: int = _MATERN_TABLE_POINTS,
 class CovarianceSpec:
     """Static description of a covariance model: ``vtype`` is one of
     'exponential', 'gaussian', 'spherical', 'matern' (case-insensitive);
-    for matérn ``matern_table`` holds the host-precomputed table."""
+    for matérn ``matern_table`` holds the host-precomputed table, and
+    ``table_on(device)`` its copy on a device."""
 
     vtype: str
     s: float | None = None
@@ -83,6 +85,20 @@ class CovarianceSpec:
             if self.matern_table is None:
                 object.__setattr__(self, "matern_table",
                                    make_matern_table(self.s))
+        object.__setattr__(self, "_device_tables", {})
+
+    def table_on(self, device) -> torch.Tensor:
+        """``matern_table`` as a float32 tensor on ``device``: copied there
+        by the first call and held by the spec for every later one, so an
+        evaluation on the card makes no host copy (a captured CUDA graph
+        can hold none)."""
+        device = torch.device(device)
+        table = self._device_tables.get(device)
+        if table is None:
+            table = torch.as_tensor(self.matern_table, dtype=torch.float32,
+                                    device=device)
+            self._device_tables[device] = table
+        return table
 
 
 def _f32(x) -> float:
@@ -109,8 +125,7 @@ def covariance_norm(spec: CovarianceSpec, norm_range, sill, nugget):
         c = (amp - 1.5 * h) + 0.5 * (h * h * h)
         # reference quirk: beyond the range the value is sill - 1
         return torch.where(h > 1.0, torch.full_like(h, _f32(sill - 1.0)), c)
-    table = torch.as_tensor(spec.matern_table, dtype=torch.float32,
-                            device=h.device)
+    table = spec.table_on(h.device)
     n = table.shape[0]
     xs = torch.clamp(h / _MATERN_TABLE_HMAX, 0.0, 1.0) * float(n - 1)
     lo = torch.floor(xs)

@@ -79,6 +79,7 @@ from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
 from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                                 make_sgs_step, sgs_init_state)
 from ..ops.launch_counts import COUNTED
+from ..utils.graphs import capture_graph
 from ..utils.progress import MultiChainProgress
 from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
                          generator_kind, generator_state, is_seed_list,
@@ -228,24 +229,6 @@ def run_chains_eager(static, consts, states, n_steps: int,
         for k, buf in bufs.items():
             buf[t] = tr[k]
     return states, bufs
-
-
-def capture_graph(body: Callable, generator=None, keep_graph: bool = False):
-    """A ``torch.cuda.CUDAGraph`` of ``body()``'s CUDA work, captured on a
-    side stream; ``generator`` (a CUDA ``torch.Generator``, or None) is
-    registered first, so that each replay draws on from where the last
-    draw left it, as the eager calls would.  ``keep_graph`` keeps the
-    captured graph beside its instantiation (for ``debug_dump``)."""
-    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-    if generator is not None:
-        graph.register_generator_state(generator)
-    # thread_local: a capture-unsafe call of another thread of the process
-    # (a process group's watchdog, the profiler) does not void the capture
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        body()
-    if keep_graph:
-        graph.instantiate()
-    return graph
 
 
 @dataclasses.dataclass

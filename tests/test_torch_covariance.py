@@ -40,6 +40,43 @@ def test_matern_table_equal(s):
     assert tcov.matern_scale_fit(s) == jcov.matern_scale_fit(s)
 
 
+@pytest.mark.parametrize("s", [1.3, 0.7])
+def test_matern_table_copied_to_a_device_once(s, monkeypatch):
+    """``covariance_norm`` copies the matérn table to a device on its first
+    call there and reads the spec's copy on every later one, with the
+    values of a fresh copy's lerp, bit for bit, and the JAX package's to
+    ``test_covariance_norm``'s tolerance."""
+    spec = tcov.CovarianceSpec("matern", s=s)
+    copies = []
+    as_tensor = torch.as_tensor
+
+    def counted(data, *args, **kw):
+        if data is spec.matern_table:
+            copies.append(kw.get("device"))
+        return as_tensor(data, *args, **kw)
+
+    monkeypatch.setattr(torch, "as_tensor", counted)
+    h = torch.linspace(0.0, 9.0, 3001)
+    first = tcov.covariance_norm(spec, h, 1.3, 0.2)
+    again = tcov.covariance_norm(spec, h, 1.3, 0.2)
+    assert len(copies) == 1
+    assert spec.table_on(h.device) is spec.table_on("cpu")
+    # the lerp on a table copied afresh, as every call made it before
+    table = as_tensor(spec.matern_table, dtype=torch.float32)
+    xs = torch.clamp(h / 8.0, 0.0, 1.0) * float(table.shape[0] - 1)
+    lo = torch.floor(xs)
+    frac = xs - lo
+    lo_i = lo.long()
+    hi_i = torch.clamp(lo_i + 1, max=table.shape[0] - 1)
+    c01 = table[lo_i] * (1.0 - frac) + table[hi_i] * frac
+    fresh = tcov._f32(1.3 - 0.2) * torch.where(h >= 8.0, 0.0, c01)
+    for got in (first, again):
+        assert torch.equal(got.view(torch.int32), fresh.view(torch.int32))
+    want = np.asarray(jcov.covariance_norm(jcov.CovarianceSpec("matern", s=s),
+                                           h.numpy(), 1.3, 0.2))
+    np.testing.assert_allclose(again.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("azimuth,major,minor", [(0.0, 5e3, 5e3),
                                                  (30.0, 8e3, 4e3),
                                                  (117.0, 12e3, 3e3)])

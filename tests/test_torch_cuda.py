@@ -3,7 +3,8 @@ CRF window kernel and Philox noise (and its keyed entry), the SGS window
 extract and writeback, the two packed CG solves (mixture system, given
 Sigma), the inverse LUT, the per-chain draw kernel of seed-listed farms
 and the SRF harmonic sum; the single-chain ``run`` on the kernels, and
-``geostats.sgs`` on the card against the CPU.
+``geostats.sgs`` on the card against the CPU, its captured chunks and
+``krige``'s against the eager loop.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -12,6 +13,7 @@ device.  The file imports no JAX, so it runs on a machine without it:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -738,6 +740,44 @@ def test_sgs_on_the_card_matches_the_cpu(cuda_device):
                **kw)
     host = sgs(p["xx"], p["yy"], p["cond_bed"], vario, device="cpu", **kw)
     np.testing.assert_allclose(card, host, atol=5e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vtype", ["Exponential", "Matern"])
+def test_captured_geostats_is_the_eager_loop(cuda_device, vtype,
+                                             monkeypatch):
+    """On the card ``sgs`` (bounded) and ``krige`` replay one captured graph
+    a chunk and give the eager loop's bed and maps bit for bit: one
+    capture a call, a replay for each full chunk after the first."""
+    import importlib
+
+    from mcmc_tpu_torch.geostats import krige, sgs
+
+    S = importlib.import_module("mcmc_tpu_torch.geostats.sgs")
+    p = small_problem(H=48, W=48)
+    vario = dict(major_range=5e3, minor_range=4e3, azimuth=20.0, sill=1.0,
+                 nugget=0.05, vtype=vtype, s=1.3)
+    args = (p["xx"], p["yy"], p["cond_bed"], vario)
+    kw = dict(radius=10e3, num_points=32, half_window=12)
+    bounds = (np.full(p["xx"].shape, -900.0), p["surf"] - 1.0)
+    captures = []
+
+    def capture(body, generator=None):
+        captures.append(S.capture_graph(body, generator))
+        return captures[-1]
+
+    monkeypatch.setattr(S, "_chunk_loops", lambda device: (
+        functools.partial(S._sgs_loop_captured, capture=capture),
+        functools.partial(S._krige_loop_captured, capture=capture)))
+    got = (sgs(*args, chunk=64, seed=4, bounds=bounds, device=cuda_device,
+               **kw),) + krige(*args, chunk=64, device=cuda_device, **kw)
+    monkeypatch.setattr(S, "_chunk_loops", lambda device: (
+        S._sgs_loop_eager, S._krige_loop_eager))
+    want = (sgs(*args, chunk=64, seed=4, bounds=bounds, device=cuda_device,
+                **kw),) + krige(*args, chunk=64, device=cuda_device, **kw)
+    assert len(captures) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int64), w.view(np.int64))
 
 
 # --- the gstools-SRF proposal's harmonic sum ---------------------------------
