@@ -26,8 +26,10 @@ line or more each:
    init(seeds=0) -> run(3 segments x 500 iterations) -> diagnostics,
    checking that every step launched the window kernel and the Philox
    noise kernel once each, the loss is finite and falls, acceptance is in
-   (0.02, 0.98) and the bed outside the update region is untouched; then
-   a short profiled window for the device's busy share;
+   (0.02, 0.98) and the bed outside the update region is untouched; the
+   diagnostics on the card held key by key to the same call on the CPU
+   (``[diag] (a)``); then a short profiled window for the device's busy
+   share;
 6. SGS kernels vs plain versions: 10 steps at the SGS headline (512
    chains on the same 512 x 512 grid), the state advancing on the
    kernels' results: window extract and writeback bitwise, the inverse
@@ -52,7 +54,8 @@ line or more each:
    checking that each of the four kernels ran once per step, the loss is
    finite and falls, acceptance is in (0.02, 0.98), the bed beyond every
    block's reach is untouched and the patched residual equals a full-grid
-   recompute; then a profiled window;
+   recompute; the diagnostics card against CPU as in 5; then a profiled
+   window;
 8. noise kernel vs plain version: the Philox normals at the CRF
    headline's shape (768 chains x 160 x 41) and at an odd pair count
    (5 x 18 x 7) bitwise equal to the plain version, their moments, tail
@@ -214,7 +217,24 @@ line or more each:
    farm's graph holds (given back when it is dropped), for the single
    chains what a finished call still holds; then a sweep of the chunk
    length (10, 25, 50, 100 steps: capture ms, µs a replayed step), from
-   which ``CHUNK_STEPS`` is set.  No gain is claimed.
+   which ``CHUNK_STEPS`` is set.  No gain is claimed;
+23. convergence diagnostics on the card (``[diag]``, after phase 7): (a)
+   is phases 5's and 7's (every key of ``sampler.diagnostics`` of the
+   main paths' own traces against the same call with ``device="cpu"``,
+   within rtol 1e-4); (b) traces at production length made from a seed
+   with numpy, an AR(1) stream (phi 0.99) held over MH-like rejections
+   at 0.3 acceptance: a 768 x 100,001 loss trace with its step trace and
+   a 256 x 20,000 x 8 probes trace; each of the six functions (on the
+   loss trace; ``acceptance_rate`` on the steps) and
+   ``sampler.diagnostics`` (on all three) from card tensors: card
+   seconds (a warm call, then the median of 3, each ended by
+   ``torch.cuda.synchronize()``), peak device memory above the start,
+   agreement with ``device="cpu"`` (rtol 1e-4) and the CPU's seconds, one
+   call at full length and one on a 20,000-iteration cut; (c)
+   ``rank_normalized_rhat`` of iid normals at 2000 x 6000 and 1536 x
+   8000 on the card, finite and within 0.02 of 1; (d) one
+   ``rank_normalized_rhat`` call at (b)'s size under ``torch.profiler``:
+   its device ops, and a single device-to-host copy, the result's, last.
 
 The problems are ``bench.py``'s headlines (its ``build_problem``,
 ``make_chain`` and ``make_sgs_chain``): Matérn nu=1.3 CRF_weight
@@ -302,6 +322,19 @@ SRF_SEED_STEPS = 50      # [srf]: the seed-listed pair's steps
 SRF_ENTRY_ITERS = (200, 300)  # [srf]: CLI run, then resume to
 SRF_FIELD = 512          # [srf]: get_random_field's grid side
 SRF_FIELDS = 5           # [srf]: fields timed
+DIAG_LOSS = (768, 100_001)     # [diag] (b): loss trace, chains x iterations
+DIAG_PROBES = (256, 20_000, 8)  # [diag] (b): probes trace, ... x probes
+DIAG_CPU_ITERS = 20_000        # [diag] (b): the cut also timed on the CPU
+DIAG_PHI = 0.99                # [diag] (b): the AR(1) stream's coefficient
+DIAG_ACCEPT = 0.3              # [diag] (b): MH-like acceptance
+DIAG_SEED = 17
+DIAG_TIMED = 3                 # [diag] (b): timed card calls after a warm one
+DIAG_RTOL = 1e-4               # card vs CPU: the same ranks and quantiles,
+                               # float32 sums and FFTs in another order
+DIAG_IID = ((2000, 6000), (1536, 8000))  # [diag] (c): chains x samples
+DIAG_IID_ATOL = 0.02
+DIAG_FUNCTIONS = ("split_rhat", "ess", "rank_normalized_rhat", "ess_bulk",
+                  "ess_tail", "acceptance_rate")
 ROOT = Path(__file__).resolve().parent
 # (wrapper, source under mcmc_tpu_torch/ops/csrc, the Pallas kernel it
 # replaces): every function of the JAX package that reaches pallas_call
@@ -1050,7 +1083,7 @@ def phase_main_path(chain, card):
     acc = float(np.mean(traces["step"][:, 1:]))
     outside = ~(sampler.consts.update_mask > 0)
     moved = int((states.bed[:, outside] != bed0[outside]).sum())
-    diag = sampler.diagnostics(traces, elapsed)
+    diag = diag_card_vs_cpu("[main] CRF", sampler, traces, elapsed, card)
     print(f"[main] {steps} steps x {N_CHAINS} chains in {elapsed:.3f} s: "
           f"{diag['chain_iters_per_sec']:,.0f} chain-it/s | ESS(loss) "
           f"{diag['ess_loss']:.1f} -> {diag['ess_per_sec']:.2f} ESS/s | "
@@ -1546,7 +1579,8 @@ def phase_sgs_main_path(chain, p, card):
         rec = masked_gaussian_loss(got, c64[7] > 0, consts.sigma_mc)
         loss_err = max(loss_err, float(
             ((states.loss_mc[i:i + 64].double() - rec).abs() / rec).max()))
-    diag = sampler.diagnostics(traces, elapsed)
+    diag = diag_card_vs_cpu("[sgs-main] SGS", sampler, traces, elapsed,
+                            card)
     print(f"[sgs-main] {steps} steps x {SGS_CHAINS} chains in "
           f"{elapsed:.3f} s: {diag['chain_iters_per_sec']:,.0f} chain-it/s | "
           f"ESS(loss) {diag['ess_loss']:.1f} -> {diag['ess_per_sec']:.2f} "
@@ -1578,6 +1612,201 @@ def phase_sgs_main_path(chain, p, card):
     busy_share(sampler, states, card, elapsed / steps * 1e6, top=10,
                watch=("lut_kernel",))
     return launches
+
+
+def _rel_err(got, want):
+    """Largest |got - want| / |want| over a value or an array (0 where both
+    are 0; inf where only ``want`` is)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return float("inf")
+    diff = np.abs(got - want)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rel = np.where(diff == 0, 0.0, diff / np.abs(want))
+    return float(rel.max()) if rel.size else 0.0
+
+
+def diag_card_vs_cpu(tag, sampler, traces, elapsed, card):
+    """[diag] (a): every key of ``sampler.diagnostics`` of a main path's
+    own traces, on the card (the sampler's device) against the same call
+    with ``device="cpu"``, within DIAG_RTOL; all finite.  Returns the
+    card's summary."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sampler.diagnostics(traces, elapsed)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = sampler.diagnostics(traces, elapsed, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = {k: _rel_err(got[k], want[k]) for k in want}
+    finite = all(np.isfinite(v).all() for v in got.values())
+    print(f"[diag] (a) {tag} traces {traces['loss'].shape}: "
+          f"sampler.diagnostics on {sampler.device} {card_s:.3f} s (first "
+          f"call), on the CPU {cpu_s:.3f} s | max rel err a key, card vs "
+          f"CPU (rtol {DIAG_RTOL:g}): "
+          f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } | finite "
+          f"{finite} ({card})", flush=True)
+    if set(got) != set(want) or not finite or not all(
+            e <= DIAG_RTOL for e in errs.values()):
+        raise RuntimeError(f"[diag] (a) {tag}: the card's diagnostics depart "
+                           f"from the CPU's: {errs}, finite {finite}")
+    return got
+
+
+def mh_like_trace(rng, chains, iters, probes=()):
+    """An AR(1) stream (coefficient DIAG_PHI) seen through MH-like
+    rejections: a step accepts with probability DIAG_ACCEPT and otherwise
+    holds its chain's last value.  Returns the chain-major float32 trace
+    (chains, iters, *probes) and the accepted steps (chains, iters)."""
+    shape = (iters, chains) + tuple(probes)
+    noise = rng.standard_normal(shape, dtype=np.float32)
+    accepted = rng.random((iters, chains)) < DIAG_ACCEPT
+    held = ~accepted.reshape((iters, chains) + (1,) * len(probes))
+    x = np.empty(shape, np.float32)
+    x[0] = prop = noise[0]
+    for t in range(1, iters):
+        prop = np.float32(DIAG_PHI) * prop + noise[t]
+        x[t] = np.where(held[t], x[t - 1], prop)
+    return (np.ascontiguousarray(np.moveaxis(x, 0, 1)),
+            np.ascontiguousarray(accepted.T))
+
+
+def _card_seconds(fn):
+    """``fn()`` on the card: one warm call, then the median seconds of
+    DIAG_TIMED, each ended by ``torch.cuda.synchronize()``; the peak device
+    memory above the start, the largest of the timed calls; the last
+    result."""
+    import torch
+
+    fn()
+    times, peak = [], 0
+    for _ in range(DIAG_TIMED):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+    return float(np.median(times)), peak, out
+
+
+def _cpu_seconds(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def _diag_input(traces, key, cut=None):
+    """A diagnostic's input: the ``key`` trace, or the whole dict for
+    ``sampler.diagnostics`` (``key`` None), its first ``cut`` iterations."""
+    traces = {k: v[:, :cut] for k, v in traces.items()}
+    return traces if key is None else traces[key]
+
+
+def _diag_errs(got, want):
+    if isinstance(want, dict):
+        return {k: _rel_err(got[k], want[k]) for k in want}
+    return {"": _rel_err(got, want)}
+
+
+def _diag_copies(fn):
+    """One call of ``fn`` under ``torch.profiler``: its device ops in
+    order of start, the device busy us, and the indices of the
+    device-to-host copies among them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    busy = sum(e.time_range.elapsed_us() for e in ops)
+    return ops, busy, [i for i, e in enumerate(ops) if "DtoH" in e.name]
+
+
+def phase_diag(chain, card):
+    """[diag] (b)-(d) (the docstring's phase 23): the six diagnostics and
+    ``sampler.diagnostics`` at production length on the card, timed and
+    held to the CPU; the JAX package's regression sizes; no early host
+    copy."""
+    import torch
+
+    from mcmc_tpu_torch import MultiChainSampler
+    from mcmc_tpu_torch.parallel import diagnostics as diag
+
+    rng = np.random.default_rng(DIAG_SEED)
+    t0 = time.perf_counter()
+    loss, accepted = mh_like_trace(rng, *DIAG_LOSS)
+    probes, _ = mh_like_trace(rng, *DIAG_PROBES[:2], DIAG_PROBES[2:])
+    traces = {"loss": loss, "step": accepted, "samples": probes}
+    print(f"[diag] (b) traces made on the host in "
+          f"{time.perf_counter() - t0:.1f} s (seed {DIAG_SEED}): loss "
+          f"{loss.shape}, steps at acceptance {accepted.mean():.4f}, probes "
+          f"{probes.shape}", flush=True)
+    on_card = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+               traces.items()}
+    sampler = MultiChainSampler(chain, DIAG_LOSS[0], device=DEVICE)
+    calls = {name: (getattr(diag, name),
+                    "step" if name == "acceptance_rate" else "loss")
+             for name in DIAG_FUNCTIONS}
+    calls["sampler.diagnostics"] = (sampler.diagnostics, None)
+    failed = []
+    for name, (fn, key) in calls.items():
+        card_in = _diag_input(on_card, key)
+        sec, peak, got = _card_seconds(lambda: fn(card_in))
+        cpu_s, want = _cpu_seconds(
+            lambda: fn(_diag_input(traces, key), device="cpu"))
+        cut_s, _ = _cpu_seconds(lambda: fn(
+            _diag_input(traces, key, DIAG_CPU_ITERS), device="cpu"))
+        errs = _diag_errs(got, want)
+        finite = all(np.isfinite(v).all() for v in (
+            got.values() if isinstance(got, dict) else [got]))
+        print(f"[diag] (b) {name}: card {sec:.4f} s (median of "
+              f"{DIAG_TIMED} after a warm call), peak {peak / 2**20:.1f} "
+              f"MiB above the start | CPU {cpu_s:.2f} s (one call), "
+              f"{cut_s:.2f} s at {DIAG_CPU_ITERS:,} iterations | max rel "
+              f"err card vs CPU {max(errs.values()):.3g} (rtol "
+              f"{DIAG_RTOL:g}) | finite {finite} ({card})", flush=True)
+        if not finite or not all(e <= DIAG_RTOL for e in errs.values()):
+            failed.append((name, errs, finite))
+    for m, n in DIAG_IID:
+        x = rng.standard_normal((m, n), dtype=np.float32)
+        t0 = time.perf_counter()
+        r = float(diag.rank_normalized_rhat(x, device=DEVICE))
+        ok = np.isfinite(r) and abs(r - 1.0) <= DIAG_IID_ATOL
+        print(f"[diag] (c) rank_normalized_rhat of iid normals {m} x {n} "
+              f"({m * n:,} pooled) on the card: {r:.6f} in "
+              f"{time.perf_counter() - t0:.3f} s (numpy in) | finite and "
+              f"within {DIAG_IID_ATOL} of 1: {ok} ({card})", flush=True)
+        if not ok:
+            failed.append((f"iid {m} x {n}", r, ok))
+    ops, busy, copies = _diag_copies(
+        lambda: diag.rank_normalized_rhat(on_card["loss"]))
+    kinds = {}
+    for e in ops:
+        kind = ("copy" if "Memcpy" in e.name else "memset"
+                if "Memset" in e.name else "kernel")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    early = not ops or copies != [len(ops) - 1]
+    print(f"[diag] (d) rank_normalized_rhat({tuple(loss.shape)}) profiled: "
+          f"{len(ops)} device ops {kinds}, busy {busy / 1e3:.2f} ms | "
+          f"device-to-host copies at op {copies} of {len(ops)} "
+          f"({[ops[i].name for i in copies]}) | an early host copy: "
+          f"{early} ({card})", flush=True)
+    if early:
+        failed.append(("profile", copies, len(ops)))
+    if failed:
+        raise RuntimeError(f"[diag] failed: {failed}")
 
 
 def phase_noise_vs_plain(chain, card):
@@ -4543,6 +4772,9 @@ def main():
     phase_sgs_window_edges(card)
     phase_cg_k96(p, card)
     sgs_launches = phase_sgs_main_path(sgs_chain, p, card)
+    t0 = time.perf_counter()
+    phase_diag(chain, card)
+    print(f"[diag] phase {time.perf_counter() - t0:.1f} s", flush=True)
     for kernel, key in (("window_extract", "extract"),
                         ("window_writeback", "writeback"),
                         ("mix_masked_cg", "cg"), ("lut_interp", "lut")):

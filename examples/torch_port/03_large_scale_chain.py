@@ -90,7 +90,7 @@ def main(device=None):
     losses = np.stack([r[3] for r in results])
     steps = np.stack([r[4] for r in results])
     acc = steps.mean(axis=1)
-    rhat = float(split_rhat(losses[:, 1:]))
+    rhat = float(split_rhat(losses[:, 1:], device=device))
     print(f"loss: {losses[:, 0].mean():.4e} -> {losses[:, -1].mean():.4e} "
           f"(baseline {baseline:.4e})")
     print(f"acceptance: {acc.round(3)}")

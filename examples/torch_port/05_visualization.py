@@ -121,9 +121,10 @@ def main(device=None):
     diag = {}
     if loss.shape[0] >= 2 and loss.shape[1] >= 8:
         post = loss[:, loss.shape[1] // 4:]  # drop the first quarter
-        diag = {"rank_normalized_rhat": float(rank_normalized_rhat(post)),
-                "ess_bulk": float(ess_bulk(post)),
-                "ess_tail": float(ess_tail(post))}
+        diag = {"rank_normalized_rhat": float(rank_normalized_rhat(
+                    post, device=device)),
+                "ess_bulk": float(ess_bulk(post, device=device)),
+                "ess_tail": float(ess_tail(post, device=device))}
         print(f"rank-normalized split R-hat (loss): "
               f"{diag['rank_normalized_rhat']:.4f} (flag > 1.01)")
         print(f"ESS bulk / tail (loss): {diag['ess_bulk']:.1f} / "

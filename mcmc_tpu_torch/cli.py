@@ -334,7 +334,7 @@ def run(cfg: dict, config_dir: Path = Path("."), quiet: bool = False,
             blocks_used=np.stack([r[6] for r in results]))
 
     if not quiet and emit:
-        _print_summary(results)
+        _print_summary(results, device)
     return results
 
 
@@ -386,7 +386,9 @@ def info(cfg: dict, config_dir: Path = Path(".")) -> int:
     return 0
 
 
-def _print_summary(results):
+def _print_summary(results, device):
+    """The run's loss, acceptance and loss R-hat, the R-hat computed on
+    the run's ``device``."""
     losses = np.stack([r[3] for r in results])
     steps = np.stack([r[4] for r in results])
     print(f"[mcmc-tpu-torch] loss: {losses[:, 0].mean():.6e} -> "
@@ -397,8 +399,9 @@ def _print_summary(results):
     if losses.shape[0] >= 2 and losses.shape[1] >= 5:
         from .parallel.diagnostics import rank_normalized_rhat
 
+        rhat = float(rank_normalized_rhat(losses[:, 1:], device=device))
         print(f"[mcmc-tpu-torch] rank-normalized split R-hat (loss): "
-              f"{float(rank_normalized_rhat(losses[:, 1:])):.4f}")
+              f"{rhat:.4f}")
 
 
 def main(argv=None) -> int:

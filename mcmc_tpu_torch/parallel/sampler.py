@@ -755,21 +755,29 @@ class MultiChainSampler:
 
     # -- diagnostics ---------------------------------------------------------
 
-    def diagnostics(self, traces, elapsed_seconds=None):
+    def diagnostics(self, traces, elapsed_seconds=None, *, device=None):
         """Convergence summary: acceptance, split R-hat and ESS of the loss
         and the probes (+ chain-it/s and ESS/s when ``elapsed_seconds`` is
-        given)."""
+        given), computed on the farm's device unless ``device`` names
+        another.  ``traces`` are chain-major: ``run``'s numpy traces, or
+        device tensors such as ``run_chains``' time-major traces
+        transposed."""
         from . import diagnostics as diag
 
-        out = {"acceptance_rate": diag.acceptance_rate(traces["step"])}
+        dev = self.device if device is None else resolve_device(device)
+
+        def on(name):  # each trace copied to the device once
+            return torch.as_tensor(traces[name], device=dev)
+
+        out = {"acceptance_rate": diag.acceptance_rate(on("step"))}
         if traces["samples"].shape[-1] > 0:
-            samp = traces["samples"]
+            samp = on("samples")
             out["rhat"] = diag.split_rhat(samp)
             out["ess"] = diag.ess(samp)
             out["rhat_rank"] = diag.rank_normalized_rhat(samp)
             out["ess_bulk"] = diag.ess_bulk(samp)
             out["ess_tail"] = diag.ess_tail(samp)
-        loss_tr = traces["loss"]
+        loss_tr = on("loss")
         out["rhat_loss"] = float(diag.split_rhat(loss_tr))
         out["ess_loss"] = float(diag.ess(loss_tr))
         out["rhat_rank_loss"] = float(diag.rank_normalized_rhat(loss_tr))

@@ -992,3 +992,35 @@ def test_restored_generator_drops_the_kept_graph(cuda_device):
         assert _bytes_equal(getattr(got_state, f.name),
                             getattr(want_state, f.name)), f.name
     assert torch.equal(sampler.generator.get_state(), rng.get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 2000, 3), (256, 20000)])
+@pytest.mark.parametrize("name", ["split_rhat", "ess", "rank_normalized_rhat",
+                                  "ess_bulk", "ess_tail", "acceptance_rate"])
+def test_diagnostics_on_the_card_match_the_cpu(cuda_device, name, shape):
+    """Each diagnostic on the card (the default for an array, and a card
+    tensor kept where it is) against ``device="cpu"`` on the same AR(1)
+    trace with runs of held values: the same ranks and quantiles, float32
+    sums and transforms in another order, within rtol 1e-4."""
+    from mcmc_tpu_torch.parallel import diagnostics
+
+    rng = np.random.default_rng(17)
+    e = rng.normal(size=(shape[1], shape[0]) + shape[2:])
+    x = np.empty_like(e)
+    x[0] = e[0]
+    held = rng.random(size=e.shape[:2]) < 0.7
+    for t in range(1, shape[1]):
+        x[t] = np.where(held[t].reshape(held[t].shape + (1,) * (e.ndim - 2)),
+                        x[t - 1], 0.99 * x[t - 1] + e[t])
+    x = np.ascontiguousarray(np.moveaxis(x, 0, 1), dtype=np.float32)
+    if name == "acceptance_rate":
+        x = np.ascontiguousarray(~held.T)
+    fn = getattr(diagnostics, name)
+    want = fn(x, device="cpu")
+    got = fn(x)
+    on_card = fn(torch.as_tensor(x, device=cuda_device))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_array_equal(on_card, got)

@@ -206,3 +206,21 @@ def test_initialize_distributed_binds_a_card_or_the_cpu(monkeypatch):
     finally:
         dist.destroy_process_group()
     assert mdist.bound_device() is None
+
+
+@pytest.mark.parametrize("name", ["split_rhat", "ess", "rank_normalized_rhat",
+                                  "ess_bulk", "ess_tail", "acceptance_rate"])
+def test_diagnostics_run_on_the_card_unless_asked(name, monkeypatch):
+    """The convergence diagnostics of a numpy trace: leaving the device
+    out means the card, which here raises naming device='cpu'; asking for
+    the CPU runs there."""
+    from mcmc_tpu_torch.parallel import diagnostics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(diagnostics, name)
+    x = np.random.default_rng(3).normal(size=(4, 100)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(x, device="cuda")
+    assert np.isfinite(fn(x, device="cpu")).all()

@@ -2,8 +2,9 @@
 
 ``MultiChainSampler.run`` on the CPU (the plain window op): trace layout
 against the JAX sampler's, chain behaviour, and seeded determinism.  The
-diagnostics run on host numpy and are held against
-``mcmc_tpu.parallel.diagnostics`` on the same numpy traces to rtol 1e-5.
+diagnostics run with torch on the traces' device (here ``device="cpu"``)
+and are held against ``mcmc_tpu.parallel.diagnostics`` on the same numpy
+traces to rtol 1e-5.
 """
 
 import dataclasses
@@ -202,7 +203,8 @@ def test_sampler_diagnostics_match_jax(run):
     held to 2e-4.  The rank-based keys and the loss keys are held to
     1e-5."""
     tr = run["traces"]
-    got = run["sampler"].diagnostics(tr, elapsed_seconds=2.0)
+    got = run["sampler"].diagnostics(tr, elapsed_seconds=2.0,
+                                      device="cpu")
     samp, loss = tr["samples"], tr["loss"]
 
     def j(name, x):
@@ -245,7 +247,7 @@ def test_diagnostics_match_jax(name, shape):
     x = _ar1(len(shape) * 10 + shape[0], shape)
     if name == "acceptance_rate":
         x = x > 0.5
-    got = getattr(tdiag, name)(x)
+    got = getattr(tdiag, name)(x, device="cpu")
     want = np.asarray(jax.jit(getattr(jdiag, name))(jnp.asarray(x)))
     assert np.shape(got) == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -256,7 +258,7 @@ def test_rank_normalization_averages_ties_like_jax():
     their average rank, in both packages."""
     rng = np.random.default_rng(12)
     x = np.repeat(rng.normal(size=(3, 40)).astype(np.float32), 5, axis=1)
-    got = tdiag._rank_normalize(x[None])
+    got = tdiag._rank_normalize(torch.from_numpy(x[None])).numpy()
     want = np.asarray(jax.jit(jdiag._rank_normalize)(jnp.asarray(x[None])))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     assert np.all(got[0, :, ::5] == got[0, :, 4::5])
