@@ -1719,7 +1719,6 @@ def _diag_copies(fn):
     order of start, the device busy us, and the indices of the
     device-to-host copies among them."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1727,8 +1726,7 @@ def _diag_copies(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops = sorted((e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA),
+    ops = sorted(_device_events(prof.events()),
                  key=lambda e: e.time_range.start)
     busy = sum(e.time_range.elapsed_us() for e in ops)
     return ops, busy, [i for i, e in enumerate(ops) if "DtoH" in e.name]
@@ -3032,7 +3030,6 @@ def _device_busy(fn):
     """(device busy us, wall us, device ops) of ``fn()`` under
     ``torch.profiler`` (busy None where it recorded no device time)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3042,12 +3039,21 @@ def _device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = _device_events(prof.key_averages())
     busy = sum(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
                for e in events)
     return (busy or None), wall_us, sum(e.count for e in events)
+
+
+def _device_events(events):
+    """The profiled device work among ``events``: kernels, copies and
+    memsets, without the device-side copies of the port's ``mcmc.*``
+    spans (user annotations, which cover the work they launched)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _same_array(a, b):
@@ -3146,7 +3152,7 @@ def _profiled_chunks(p, vario, bounds, card, way, pinned=True):
                                draw)
     torch.cuda.synchronize()
     events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_device = _device_events(events)
     busy = sum(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
                for e in on_device) or None
@@ -4478,6 +4484,17 @@ def _held_mib(release):
             (r0 - torch.cuda.memory_reserved()) / 2**20)
 
 
+def _capture_ms(fn):
+    """``fn()``'s result and the milliseconds of the segment captures it
+    made: its ``mcmc.run_chains.capture`` spans under a CPU profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.cpu_time_total for e in prof.events()
+                    if e.name == "mcmc.run_chains.capture") / 1e3
+
+
 def _idle(r):
     """1 - device busy / unprofiled wall, a step (None unmeasured)."""
     return None if r["busy"] is None else 1 - r["busy"] / r["us"]
@@ -4513,7 +4530,11 @@ def _graph_farm(sampler, tag, seeding, names, card):
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
-            st, tr = run(static, consts, st, steps, rng=rng)
+            if i == 0:  # the graph's capture
+                (st, tr), capture_ms = _capture_ms(
+                    lambda: run(static, consts, st, steps, rng=rng))
+            else:
+                st, tr = run(static, consts, st, steps, rng=rng)
             torch.cuda.synchronize()
             if i == 0:
                 peak = torch.cuda.max_memory_allocated() - base
@@ -4522,8 +4543,7 @@ def _graph_farm(sampler, tag, seeding, names, card):
             traces.append(tr)
         out[way] = dict(run=run, state=st, rng=rng, traces=traces, us=us,
                         peak=peak, launches=_launch_counts(),
-                        capture_ms=(graphs.graph.capture_ms
-                                    if way == "graph" else None))
+                        capture_ms=capture_ms if way == "graph" else None)
     e, g = out["eager"], out["graph"]
     same = {
         "traces": all(set(a) == set(b) and all(_same_bits(a[k], b[k])
@@ -4653,8 +4673,8 @@ def _chunk_sweep(samplers, card):
                 ps.CHUNK_STEPS = chunk
                 states = sampler.init(seeds=0)
                 steps = -(-GRAPH_SEGMENTS[-1] // chunk) * chunk
-                sampler.run_segment(states, ps.WARM_STEPS + chunk)
-                capture_ms = sampler.graphs.graph.capture_ms
+                _, capture_ms = _capture_ms(lambda: sampler.run_segment(
+                    states, ps.WARM_STEPS + chunk))
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 sampler.run_segment(states, steps)
@@ -4710,7 +4730,6 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
     Returns {"ops_per_step", "busy_us"} (None where the profiler recorded
     no device time)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mcmc_tpu_torch.parallel.sampler import CHUNK_STEPS, WARM_STEPS
@@ -4726,8 +4745,7 @@ def busy_share(sampler, states, card, step_us, n_steps=50, top=6,
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    events = _device_events(prof.key_averages())
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",

@@ -26,6 +26,12 @@ eagerly (it warms the sort's and the solver's workspaces), and so do the
 last ``n mod chunk`` cells.  The eager loops (``_sgs_loop_eager``,
 ``_krige_loop_eager``) launch every op from Python: they are the plain
 versions, which CPU grids run, and the captured loops give their bits.
+Under any profiler ``sgs`` shows as spans (``utils/spans.py``):
+``mcmc.sgs`` a call, holding ``.prepare`` (the transforms, the path),
+``.eager`` (the first chunk, the tail, a CPU grid's every chunk),
+``.capture``, one ``.chunk`` a replayed chunk (its ``.replay``, ``.wait``
+for the card and the host's ``.draw``) and ``.finish`` (the inverse
+transform).
 
 Random stream: the host generator is seeded with the same numpy uint32
 scalar as the JAX package's (the last word of its key data, ``seed mod
@@ -47,6 +53,7 @@ from ..ops.neighbors import octant_sector, octant_select
 from ..ops.transforms import NormalScoreTransform
 from ..utils.graphs import capture_graph
 from ..utils.rng import resolve_device, resolve_seed
+from ..utils.spans import span
 
 
 def _vario_to_spec(variogram: dict) -> CovarianceSpec:
@@ -192,13 +199,15 @@ def _sgs_loop_eager(p, zg, path, radius, chunk, draw):
     version of ``_sgs_loop_captured`` and what CPU grids run: a chunk's
     (est, var) to the host, ``draw(cells, est, var)`` there, the draws
     scattered into ``zg``."""
-    path_t = torch.as_tensor(path, dtype=torch.long, device=zg.device)
-    for start in range(0, path.shape[0], chunk):
-        ii, jj = path_t[start: start + chunk].unbind(1)
-        est, var = _solve_chunk(p, zg, ii, jj, radius)
-        draws = draw(path[start: start + chunk], est, var)
-        zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
-                                     device=zg.device)
+    with span("mcmc.sgs.eager"):
+        path_t = torch.as_tensor(path, dtype=torch.long, device=zg.device)
+        for start in range(0, path.shape[0], chunk):
+            ii, jj = path_t[start: start + chunk].unbind(1)
+            est, var = _solve_chunk(p, zg, ii, jj, radius)
+            with span("mcmc.sgs.draw"):
+                draws = draw(path[start: start + chunk], est, var)
+            zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
+                                         device=zg.device)
 
 
 def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
@@ -234,17 +243,24 @@ def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
 
     cells.copy_(path_t[:2 * C])
     draws.copy_(zg[last])  # the first chunk's, which the first replay rewrites
-    graph = capture(body)
+    with span("mcmc.sgs.capture"):
+        graph = capture(body)
     for k in range(1, full):
-        if k > 1:
-            cells.copy_(path_t[(k - 1) * C: (k + 1) * C])
-        graph.replay()
-        out_h.copy_(out)  # waits for the replay
-        est, var = out_h.numpy().astype(float)
-        draws_h.numpy()[:] = draw(path[k * C: (k + 1) * C], est, var)
-        draws.copy_(draws_h, non_blocking=True)
+        with span("mcmc.sgs.chunk"):
+            with span("mcmc.sgs.replay"):
+                if k > 1:
+                    cells.copy_(path_t[(k - 1) * C: (k + 1) * C])
+                graph.replay()
+            with span("mcmc.sgs.wait"):
+                out_h.copy_(out)  # waits for the replay
+                est, var = out_h.numpy().astype(float)
+            with span("mcmc.sgs.draw"):
+                draws_h.numpy()[:] = draw(path[k * C: (k + 1) * C], est,
+                                          var)
+            draws.copy_(draws_h, non_blocking=True)
     zg[this] = draws  # the last replayed chunk's draws
-    _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
+    if n > full * C:
+        _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
 
 
 def _krige_loop_eager(p, zg, cells, radius, chunk, est_map, var_map):
@@ -331,53 +347,59 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
     the simulated 2D array in data units.
     """
     device = resolve_device(device)
-    p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
-                 half_window, device)
-    H, W, nst = p["H"], p["W"], p["nst"]
+    with span("mcmc.sgs"):
+        with span("mcmc.sgs.prepare"):
+            p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
+                         half_window, device)
+            H, W, nst = p["H"], p["W"], p["nst"]
 
-    rng = np.random.default_rng(numpy_seed(seed))
-    order = rng.permutation(p["cells"].shape[0])
-    path = p["cells"][order]
+            rng = np.random.default_rng(numpy_seed(seed))
+            order = rng.permutation(p["cells"].shape[0])
+            path = p["cells"][order]
 
-    # transformed bounds (lower, upper) grids, if any
-    if bounds is not None:
-        if len(bounds) != 2:
-            raise ValueError("bounds must be an iterable of length 2 with "
-                             "lower and upper bounds")
-        tb = []
-        for b in bounds:
-            b = (np.full((H, W), float(b)) if np.isscalar(b)
-                 else np.asarray(b, float))
-            if b.shape != p["grid"].shape:
-                raise ValueError("bounds must have same shape as grid")
-            tb.append(np.asarray(nst.transform_np(b)))
-        lo_b, hi_b = tb
+            # transformed bounds (lower, upper) grids, if any
+            if bounds is not None:
+                if len(bounds) != 2:
+                    raise ValueError("bounds must be an iterable of length "
+                                     "2 with lower and upper bounds")
+                tb = []
+                for b in bounds:
+                    b = (np.full((H, W), float(b)) if np.isscalar(b)
+                         else np.asarray(b, float))
+                    if b.shape != p["grid"].shape:
+                        raise ValueError("bounds must have same shape as "
+                                         "grid")
+                    tb.append(np.asarray(nst.transform_np(b)))
+                lo_b, hi_b = tb
+            zg = _score_grid(p, device)
 
-    def draw(cells, est, var):
-        """The host's draws at ``cells`` given (est, var), float64."""
-        sd = np.sqrt(np.abs(var))
-        if bounds is None:
-            return rng.normal(est, np.maximum(sd, 1e-12))
-        from scipy.stats import truncnorm
+        def draw(cells, est, var):
+            """The host's draws at ``cells`` given (est, var), float64."""
+            sd = np.sqrt(np.abs(var))
+            if bounds is None:
+                return rng.normal(est, np.maximum(sd, 1e-12))
+            from scipy.stats import truncnorm
 
-        lo = lo_b[cells[:, 0], cells[:, 1]]
-        hi = hi_b[cells[:, 0], cells[:, 1]]
-        eq = lo == hi
-        sd_s = np.maximum(sd, 1e-12)
-        # mask degenerate bounds BEFORE calling rvs: scipy raises on a == b
-        # instead of returning the point mass
-        a = np.where(eq, -1.0, (lo - est) / sd_s)
-        b = np.where(eq, 1.0, (hi - est) / sd_s)
-        return np.where(eq, lo, truncnorm.rvs(a, b, loc=est, scale=sd_s,
-                                               random_state=rng))
+            lo = lo_b[cells[:, 0], cells[:, 1]]
+            hi = hi_b[cells[:, 0], cells[:, 1]]
+            eq = lo == hi
+            sd_s = np.maximum(sd, 1e-12)
+            # mask degenerate bounds BEFORE calling rvs: scipy raises on
+            # a == b instead of returning the point mass
+            a = np.where(eq, -1.0, (lo - est) / sd_s)
+            b = np.where(eq, 1.0, (hi - est) / sd_s)
+            return np.where(eq, lo, truncnorm.rvs(a, b, loc=est,
+                                                   scale=sd_s,
+                                                   random_state=rng))
 
-    zg = _score_grid(p, device)
-    with _batched_lu(device):
-        _chunk_loops(device)[0](p, zg, path, radius, chunk, draw)
+        with _batched_lu(device):
+            _chunk_loops(device)[0](p, zg, path, radius, chunk, draw)
 
-    # cells outside sim_mask keep the score 0, as in the JAX package
-    out = np.asarray(nst.inverse_np(np.nan_to_num(zg.cpu().numpy())))
-    return out.reshape(H, W)
+        with span("mcmc.sgs.finish"):
+            # cells outside sim_mask keep the score 0, as in the JAX package
+            out = np.asarray(nst.inverse_np(np.nan_to_num(
+                zg.cpu().numpy())))
+            return out.reshape(H, W)
 
 
 def krige(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",

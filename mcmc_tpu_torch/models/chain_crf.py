@@ -52,6 +52,7 @@ from ..utils.config import (BlockMenuConfig, LossConfig, RandFieldConfig,
                             WeightConfig)
 from ..utils.rng import (PerChainStreams, RowSlice, draw_rows, is_seed_list,
                          resolve_device, resolve_seed)
+from ..utils.spans import span
 from .randfield import (RandFieldArrays, RandFieldStatic,
                         block_param_entries, block_params_from,
                         build_randfield, draw_block_params, finish_block,
@@ -393,8 +394,9 @@ def make_kernel(static: CRFStatic, impl: str = "auto"):
 def host_copy(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of ``t`` that shares no memory with it (on the CPU,
     ``.numpy()`` alone would alias a state the next step updates in
-    place)."""
-    return t.to("cpu", copy=True).numpy()
+    place).  A device tensor's copy waits for the work that writes it."""
+    with span("mcmc.host_copy"):
+        return t.to("cpu", copy=True).numpy()
 
 
 def sample_probes(beds, sample_ij, n):

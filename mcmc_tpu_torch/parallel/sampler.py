@@ -54,7 +54,11 @@ a step, on the device).  The stream's state goes in and out for
 checkpoints (``io/checkpoint.py``).  ``run`` also thins each chain's bed
 to one snapshot a segment (``collect_beds``) and traces its second
 segment with ``torch.profiler`` (``profile_dir``); ``run_segment`` can
-trace every step's bed (``save_beds``).
+trace every step's bed (``save_beds``).  Under any profiler a call shows
+as spans (``utils/spans.py``): ``mcmc.run_chains``, and inside it
+``mcmc.run_chains.eager`` (the warm-up steps, the tail),
+``mcmc.run_chains.capture`` and one ``mcmc.run_chains.replay`` a chunk;
+the traces' copy to the host is ``mcmc.host_copy``.
 
 The reference's functional forms are here too, with its arguments in its
 order: ``run_chains(static, consts, states, n_steps, save_beds, *, rng)``
@@ -85,6 +89,7 @@ from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
                          generator_kind, generator_state, is_seed_list,
                          make_generator, resolve_device, resolve_seed,
                          restore_generator)
+from ..utils.spans import span
 from .distributed import bound_device, global_chains_mesh, world
 from .mesh import gather_rows
 
@@ -200,11 +205,12 @@ def run_chains(static, consts, states, n_steps: int, save_beds: bool = False,
     alone.  CPU states run the eager loop (``run_chains_eager``).  Both
     give the same bits."""
     check_rng(rng, RUN_CHAINS_FORM)
-    if states.fields.device.type != "cuda":
-        return run_chains_eager(static, consts, states, n_steps, save_beds,
-                                rng=rng, impl=impl)
-    return run_chains_chunked(static, consts, states, n_steps, save_beds,
-                              rng=rng, impl=impl, graphs=graphs)
+    with span("mcmc.run_chains"):
+        if states.fields.device.type != "cuda":
+            return run_chains_eager(static, consts, states, n_steps,
+                                    save_beds, rng=rng, impl=impl)
+        return run_chains_chunked(static, consts, states, n_steps, save_beds,
+                                  rng=rng, impl=impl, graphs=graphs)
 
 
 def run_chains_eager(static, consts, states, n_steps: int,
@@ -245,7 +251,6 @@ class SegmentGraph:
     graph: object
     staging: dict
     launches: tuple
-    capture_ms: float
     replays: int = 0
 
     @property
@@ -319,20 +324,18 @@ def _capture_segment(step, consts, states, rng, save_beds, bufs, capture,
                      {k: s[i] for k, s in staging.items()})
 
     before = {c: c.launches for c in COUNTED}
-    t0 = time.perf_counter()
     try:
-        graph = capture(body, rng.generator if isinstance(rng, RowSlice)
-                        else rng if isinstance(rng, torch.Generator)
-                        else None)
-        capture_ms = (time.perf_counter() - t0) * 1e3
+        with span("mcmc.run_chains.capture"):
+            graph = capture(body, rng.generator if isinstance(rng, RowSlice)
+                            else rng if isinstance(rng, torch.Generator)
+                            else None)
         counted = tuple((c, c.launches - before.get(c, 0)) for c in COUNTED
                         if c.launches != before.get(c, 0))
     finally:
         for c in COUNTED:
             c.launches = before.get(c, 0)
     return SegmentGraph(key=key, operands=operands, graph=graph,
-                        staging=staging, launches=counted,
-                        capture_ms=capture_ms)
+                        staging=staging, launches=counted)
 
 
 def run_chains_chunked(static, consts, states, n_steps: int,
@@ -359,9 +362,12 @@ def run_chains_chunked(static, consts, states, n_steps: int,
                          states.fields.device, save_beds)
 
     def eager(lo, hi):
-        for t in range(lo, hi):
-            _advance(step, consts, states, rng, save_beds,
-                     {k: b[t] for k, b in bufs.items()})
+        if hi <= lo:
+            return
+        with span("mcmc.run_chains.eager"):
+            for t in range(lo, hi):
+                _advance(step, consts, states, rng, save_beds,
+                         {k: b[t] for k, b in bufs.items()})
 
     graphs = GraphCache() if graphs is None else graphs
     key = _operand_key(static, consts, states, rng, save_beds, impl)
@@ -378,9 +384,10 @@ def run_chains_chunked(static, consts, states, n_steps: int,
                                    (static, consts, states, rng))
             graphs.graph = seg
     while seg is not None and n_steps - t >= chunk:
-        seg.replay()
-        for k, b in bufs.items():
-            b[t:t + chunk].copy_(seg.staging[k])
+        with span("mcmc.run_chains.replay"):
+            seg.replay()
+            for k, b in bufs.items():
+                b[t:t + chunk].copy_(seg.staging[k])
         t += chunk
     eager(t, n_steps)
     return states, bufs
