@@ -15,8 +15,15 @@ Where the work runs: a chunk's window gather, octant search, kriging
 solve and scatter are a fixed set of batched torch ops on ``device`` (the
 card unless the caller asks for the CPU), in float32 as the JAX package
 computes them; the normal-score transforms (``transform_np`` /
-``inverse_np``) and the draws stay on the host in numpy, as the JAX
-package's do.  So the loop syncs once a chunk (est and var to the host).
+``inverse_np``) stay on the host in numpy, as the JAX package's do.  The
+draws follow the grid.  On a CPU grid they stay on the host, as the JAX
+package's do: a chunk's (est, var) go to the host and scipy draws there
+(``_host_draws``).  On the card the bed's uniforms (bounded) or standard
+normals (unbounded), one a cell, are drawn on the host at once after the
+path's permutation, the same stream the chunk-by-chunk calls take, and
+uploaded with the transformed bounds (``_CardDraws``); each chunk then
+draws in float64 and scatters its scores on the card
+(``ops/bounded_draw_kernel.py``), so no chunk waits for the host.
 
 How the chunks reach the device: on the card, as the JAX package's
 jitted ``batch_cell`` and ``scatter`` do, one CUDA graph is captured a
@@ -26,18 +33,29 @@ eagerly (it warms the sort's and the solver's workspaces), and so do the
 last ``n mod chunk`` cells.  The eager loops (``_sgs_loop_eager``,
 ``_krige_loop_eager``) launch every op from Python: they are the plain
 versions, which CPU grids run, and the captured loops give their bits.
+With the card's draws a replayed chunk is the copy of its cells and the
+replay: it solves, draws and scatters, and the host queues the next
+without waiting; the one sync is ``.finish``'s grid to the host.  With
+host draws (a CPU grid, or a ``draw`` callable other than ``sgs``'s own)
+the chunk's (est, var) go to a pinned host buffer, one sync a chunk.
 Under any profiler ``sgs`` shows as spans (``utils/spans.py``):
 ``mcmc.sgs`` a call, holding ``.prepare`` (the transforms, the path),
 ``.eager`` (the first chunk, the tail, a CPU grid's every chunk),
-``.capture``, one ``.chunk`` a replayed chunk (its ``.replay``, ``.wait``
-for the card and the host's ``.draw``) and ``.finish`` (the inverse
-transform).
+``.capture``, one ``.chunk`` a replayed chunk (its ``.replay``; with host
+draws also ``.wait`` for the card and the host's ``.draw``) and
+``.finish`` (the inverse transform); ``.draw`` is the host's draws, a
+chunk's on the host path, and on the card the one draw and upload of a
+bed.  A chunk drawn on the card counts one launch of
+``ops/bounded_draw_kernel.bounded_draw`` (``.launches``), replays
+included.
 
 Random stream: the host generator is seeded with the same numpy uint32
 scalar as the JAX package's (the last word of its key data, ``seed mod
 2**32``), so the path permutation and every normal or truncated-normal
 draw are the JAX package's; beds then differ from the JAX package's only
-by float32 rounding in the solves.  ``seed=None`` draws fresh entropy.
+by float32 rounding in the solves (and, on the card, by the draws'
+float64 rounding on the card against scipy's on the host, about 1e-15).
+``seed=None`` draws fresh entropy.
 """
 
 from __future__ import annotations
@@ -47,8 +65,10 @@ import contextlib
 import numpy as np
 import torch
 
+from ..ops.bounded_draw_kernel import bounded_draw
 from ..ops.covariance import CovarianceSpec, _f32, make_rotation_matrix
 from ..ops.kriging import ok_solve_masked, sk_solve_masked
+from ..ops.launch_counts import uncounted
 from ..ops.neighbors import octant_sector, octant_select
 from ..ops.transforms import NormalScoreTransform
 from ..utils.graphs import capture_graph
@@ -168,12 +188,77 @@ def _score_grid(p, device):
                            dtype=torch.float32, device=device)
 
 
+def _solve(p, zg, ii, jj, radius):
+    """(est, var) of the cells (ii, jj), each (C,) float32 on ``zg``'s
+    device."""
+    return p["cell"](zg, ii, jj, p["res"], p["rot"], p["sill"],
+                     p["nugget"], _f32(radius), p["global_mean"])
+
+
 def _solve_chunk(p, zg, ii, jj, radius):
     """(est, var) of the cells (ii, jj) as float64 host arrays: one sync."""
-    est, var = p["cell"](zg, ii, jj, p["res"], p["rot"], p["sill"],
-                         p["nugget"], _f32(radius), p["global_mean"])
-    out = torch.stack([est, var]).cpu().numpy().astype(float)
-    return out[0], out[1]
+    out = torch.stack(_solve(p, zg, ii, jj, radius)).cpu().numpy()
+    return out.astype(float)
+
+
+def _host_draws(rng, bounds):
+    """``sgs``'s draws on the host: ``draw(cells, est, var)``, the float64
+    draws at ``cells`` given (est, var), from ``rng`` chunk by chunk;
+    ``bounds`` the transformed (lower, upper) planes or None."""
+
+    def draw(cells, est, var):
+        sd = np.sqrt(np.abs(var))
+        if bounds is None:
+            return rng.normal(est, np.maximum(sd, 1e-12))
+        from scipy.stats import truncnorm
+
+        lo, hi = (b[cells[:, 0], cells[:, 1]] for b in bounds)
+        eq = lo == hi
+        sd_s = np.maximum(sd, 1e-12)
+        # mask degenerate bounds BEFORE calling rvs: scipy raises on
+        # a == b instead of returning the point mass
+        a = np.where(eq, -1.0, (lo - est) / sd_s)
+        b = np.where(eq, 1.0, (hi - est) / sd_s)
+        return np.where(eq, lo, truncnorm.rvs(a, b, loc=est, scale=sd_s,
+                                               random_state=rng))
+
+    return draw
+
+
+class _CardDraws:
+    """``sgs``'s draws on the grid's device: every cell's uniform
+    (bounded) or standard normal (unbounded) drawn from ``rng`` at once,
+    which is the stream the host's chunk-by-chunk draws take (one
+    ``rng.uniform`` a cell in ``truncnorm.rvs``, one standard normal in
+    ``rng.normal``), laid at the path's cells in an (H, W) float64 plane
+    and uploaded once with the transformed ``bounds`` (or None).
+    ``scatter`` draws a chunk and writes it into the grid there
+    (``ops/bounded_draw_kernel.py``)."""
+
+    def __init__(self, rng, path, bounds, grid):
+        with span("mcmc.sgs.draw"):
+            n = path.shape[0]
+            plane = np.zeros(tuple(grid.shape))
+            plane[path[:, 0], path[:, 1]] = (
+                rng.standard_normal(n) if bounds is None
+                else rng.uniform(size=n))
+            self.bounds = None
+            if bounds is not None:
+                lo, hi = (b[path[:, 0], path[:, 1]] for b in bounds)
+                if not np.all((lo < hi) | (lo == hi)):
+                    # as scipy's truncnorm.rvs refuses a > b on the host
+                    raise ValueError("Domain error in arguments: a lower "
+                                     "bound above its upper bound")
+                self.bounds = tuple(torch.as_tensor(
+                    np.ascontiguousarray(b, float), device=grid.device)
+                    for b in bounds)
+            self.u = torch.as_tensor(plane, device=grid.device)
+
+    def scatter(self, zg, cells, est, var):
+        """Draw the ``cells`` ((C, 2) int64 on ``zg``'s device) from their
+        (est, var) and write them into ``zg``."""
+        bounded_draw(zg, cells, est, var, self.u,
+                     *(self.bounds or (None, None)))
 
 
 @contextlib.contextmanager
@@ -198,33 +283,76 @@ def _sgs_loop_eager(p, zg, path, radius, chunk, draw):
     """The SGS chunk loop with every op launched from Python, the plain
     version of ``_sgs_loop_captured`` and what CPU grids run: a chunk's
     (est, var) to the host, ``draw(cells, est, var)`` there, the draws
-    scattered into ``zg``."""
+    scattered into ``zg``; or, with ``sgs``'s card draws
+    (``_CardDraws``), the chunk drawn and scattered on ``zg``'s device."""
     with span("mcmc.sgs.eager"):
-        path_t = torch.as_tensor(path, dtype=torch.long, device=zg.device)
+        path_t = torch.as_tensor(np.ascontiguousarray(path),
+                                 dtype=torch.long, device=zg.device)
         for start in range(0, path.shape[0], chunk):
-            ii, jj = path_t[start: start + chunk].unbind(1)
-            est, var = _solve_chunk(p, zg, ii, jj, radius)
+            cells = path_t[start: start + chunk]
+            if isinstance(draw, _CardDraws):
+                draw.scatter(zg, cells, *_solve(p, zg, *cells.unbind(1),
+                                                radius))
+                continue
+            est, var = _solve_chunk(p, zg, *cells.unbind(1), radius)
             with span("mcmc.sgs.draw"):
                 draws = draw(path[start: start + chunk], est, var)
-            zg[ii, jj] = torch.as_tensor(draws, dtype=torch.float32,
-                                         device=zg.device)
+            zg[cells.unbind(1)] = torch.as_tensor(draws, dtype=torch.float32,
+                                                  device=zg.device)
 
 
 def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
                        capture=capture_graph):
     """``_sgs_loop_eager``'s bits from one captured chunk (module
     docstring): the first chunk eagerly, then ``capture(body)`` of a
-    chunk on fixed buffers (the last chunk's scatter, then this chunk's
-    solve) replayed for every later full chunk, then the last ``n mod
-    chunk`` cells eagerly.  From Python a replayed chunk is a copy of its
-    cells, the replay, (est, var) to a pinned host buffer (the one sync)
-    and the draws back from another.  A path of fewer than two full
-    chunks has nothing to replay and runs eagerly."""
+    chunk on fixed buffers replayed for every later full chunk
+    (``_card_replays`` with ``sgs``'s card draws, else
+    ``_host_replays``), then the last ``n mod chunk`` cells eagerly.  A
+    path of fewer than two full chunks has nothing to replay and runs
+    eagerly."""
     n, C = path.shape[0], int(chunk)
     full = n // C
     if full < 2:
         return _sgs_loop_eager(p, zg, path, radius, C, draw)
     _sgs_loop_eager(p, zg, path[:C], radius, C, draw)
+    replays = (_card_replays if isinstance(draw, _CardDraws)
+               else _host_replays)
+    replays(p, zg, path, radius, C, full, draw, capture)
+    if n > full * C:
+        _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
+
+
+def _card_replays(p, zg, path, radius, C, full, draws, capture):
+    """Full chunks 1 .. ``full`` - 1 of ``path`` with ``sgs``'s card draws:
+    a captured chunk that solves, draws and scatters on the device, from
+    Python a copy of its cells and the replay, with no wait.  Each replay
+    counts the launches its capture counted (``ops/launch_counts.py``)."""
+    cells_t = torch.as_tensor(path[C: full * C], dtype=torch.long,
+                              device=zg.device)
+    this = torch.empty((C, 2), dtype=torch.long, device=zg.device)
+
+    def body():
+        draws.scatter(zg, this, *_solve(p, zg, *this.unbind(1), radius))
+
+    this.copy_(cells_t[:C])
+    with span("mcmc.sgs.capture"):
+        graph, launches = uncounted(capture, body)
+    for k in range(full - 1):
+        with span("mcmc.sgs.chunk"), span("mcmc.sgs.replay"):
+            if k:
+                this.copy_(cells_t[k * C: (k + 1) * C])
+            graph.replay()
+        for counter, count in launches:
+            counter.launches += count
+
+
+def _host_replays(p, zg, path, radius, C, full, draw, capture):
+    """Full chunks 1 .. ``full`` - 1 of ``path`` with host draws: a
+    captured chunk on fixed buffers (the last chunk's scatter, then this
+    chunk's solve), from Python a copy of its cells, the replay, (est,
+    var) to a pinned host buffer (the one sync), ``draw`` there and the
+    draws back from another; the last replayed chunk's draws scattered
+    after the loop."""
     dev = zg.device
     pin = dev.type == "cuda"
     path_t = torch.as_tensor(path[:full * C], dtype=torch.long, device=dev)
@@ -237,9 +365,7 @@ def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
 
     def body():
         zg[last] = draws
-        out[0], out[1] = p["cell"](zg, *this, p["res"], p["rot"], p["sill"],
-                                   p["nugget"], _f32(radius),
-                                   p["global_mean"])
+        out[0], out[1] = _solve(p, zg, *this, radius)
 
     cells.copy_(path_t[:2 * C])
     draws.copy_(zg[last])  # the first chunk's, which the first replay rewrites
@@ -259,8 +385,6 @@ def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
                                           var)
             draws.copy_(draws_h, non_blocking=True)
     zg[this] = draws  # the last replayed chunk's draws
-    if n > full * C:
-        _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
 
 
 def _krige_loop_eager(p, zg, cells, radius, chunk, est_map, var_map):
@@ -295,9 +419,7 @@ def _krige_loop_captured(p, zg, cells, radius, chunk, est_map, var_map,
     this = torch.empty((C, 2), dtype=torch.long, device=zg.device)
 
     def solve(ii, jj):
-        maps[:, ii, jj] = torch.stack(p["cell"](
-            zg, ii, jj, p["res"], p["rot"], p["sill"], p["nugget"],
-            _f32(radius), p["global_mean"]))
+        maps[:, ii, jj] = torch.stack(_solve(p, zg, ii, jj, radius))
 
     def body():
         solve(*this.unbind(1))
@@ -358,6 +480,7 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
             path = p["cells"][order]
 
             # transformed bounds (lower, upper) grids, if any
+            tb = None
             if bounds is not None:
                 if len(bounds) != 2:
                     raise ValueError("bounds must be an iterable of length "
@@ -370,28 +493,10 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
                         raise ValueError("bounds must have same shape as "
                                          "grid")
                     tb.append(np.asarray(nst.transform_np(b)))
-                lo_b, hi_b = tb
             zg = _score_grid(p, device)
 
-        def draw(cells, est, var):
-            """The host's draws at ``cells`` given (est, var), float64."""
-            sd = np.sqrt(np.abs(var))
-            if bounds is None:
-                return rng.normal(est, np.maximum(sd, 1e-12))
-            from scipy.stats import truncnorm
-
-            lo = lo_b[cells[:, 0], cells[:, 1]]
-            hi = hi_b[cells[:, 0], cells[:, 1]]
-            eq = lo == hi
-            sd_s = np.maximum(sd, 1e-12)
-            # mask degenerate bounds BEFORE calling rvs: scipy raises on
-            # a == b instead of returning the point mass
-            a = np.where(eq, -1.0, (lo - est) / sd_s)
-            b = np.where(eq, 1.0, (hi - est) / sd_s)
-            return np.where(eq, lo, truncnorm.rvs(a, b, loc=est,
-                                                   scale=sd_s,
-                                                   random_state=rng))
-
+        draw = (_CardDraws(rng, path, tb, zg) if device.type == "cuda"
+                else _host_draws(rng, tb))
         with _batched_lu(device):
             _chunk_loops(device)[0](p, zg, path, radius, chunk, draw)
 

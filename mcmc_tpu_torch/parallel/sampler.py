@@ -82,7 +82,7 @@ from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
                                 host_copy, init_state, make_step)
 from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                                 make_sgs_step, sgs_init_state)
-from ..ops.launch_counts import COUNTED
+from ..ops.launch_counts import uncounted
 from ..utils.graphs import capture_graph
 from ..utils.progress import MultiChainProgress
 from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
@@ -323,17 +323,10 @@ def _capture_segment(step, consts, states, rng, save_beds, bufs, capture,
             _advance(step, consts, states, rng, save_beds,
                      {k: s[i] for k, s in staging.items()})
 
-    before = {c: c.launches for c in COUNTED}
-    try:
-        with span("mcmc.run_chains.capture"):
-            graph = capture(body, rng.generator if isinstance(rng, RowSlice)
-                            else rng if isinstance(rng, torch.Generator)
-                            else None)
-        counted = tuple((c, c.launches - before.get(c, 0)) for c in COUNTED
-                        if c.launches != before.get(c, 0))
-    finally:
-        for c in COUNTED:
-            c.launches = before.get(c, 0)
+    with span("mcmc.run_chains.capture"):
+        graph, counted = uncounted(
+            capture, body, rng.generator if isinstance(rng, RowSlice)
+            else rng if isinstance(rng, torch.Generator) else None)
     return SegmentGraph(key=key, operands=operands, graph=graph,
                         staging=staging, launches=counted)
 

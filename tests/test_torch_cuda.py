@@ -4,7 +4,7 @@ extract and writeback, the two packed CG solves (mixture system, given
 Sigma), the inverse LUT, the per-chain draw kernel of seed-listed farms
 and the SRF harmonic sum; the single-chain ``run`` on the kernels, and
 ``geostats.sgs`` on the card against the CPU, its captured chunks and
-``krige``'s against the eager loop.
+``krige``'s against the eager loop, and the T2 chunk's draw kernel.
 
 Every test here is marked ``cuda`` and skips where there is no CUDA
 device.  The file imports no JAX, so it runs on a machine without it:
@@ -727,8 +727,10 @@ def test_single_chain_run_is_the_one_chain_farm(cuda_device, family):
 @pytest.mark.cuda
 def test_sgs_on_the_card_matches_the_cpu(cuda_device):
     """``geostats.sgs`` with the same seed on the card and on the CPU: the
-    same octant picks and host draws, the beds apart only by float32
-    rounding in the kriging solves (within 5e-2 m)."""
+    same octant picks and the same uniforms, drawn on the card in one
+    launch a chunk and on the host by scipy, the beds apart only by
+    float32 rounding in the kriging solves and the draws' float64
+    rounding (within 5e-2 m)."""
     from mcmc_tpu_torch.geostats import sgs
 
     p = small_problem(H=48, W=48)
@@ -743,15 +745,19 @@ def test_sgs_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bounded", [True, False])
 @pytest.mark.parametrize("vtype", ["Exponential", "Matern"])
-def test_captured_geostats_is_the_eager_loop(cuda_device, vtype,
+def test_captured_geostats_is_the_eager_loop(cuda_device, vtype, bounded,
                                              monkeypatch):
-    """On the card ``sgs`` (bounded) and ``krige`` replay one captured graph
-    a chunk and give the eager loop's bed and maps bit for bit: one
-    capture a call, a replay for each full chunk after the first."""
+    """On the card ``sgs`` (bounded and not) and ``krige`` replay one
+    captured graph a chunk and give the eager loop's bed and maps bit for
+    bit: one capture a call, a replay for each full chunk after the
+    first; every chunk of either bed drawn on the card, one launch of the
+    draw kernel a chunk."""
     import importlib
 
     from mcmc_tpu_torch.geostats import krige, sgs
+    from mcmc_tpu_torch.ops.bounded_draw_kernel import bounded_draw
 
     S = importlib.import_module("mcmc_tpu_torch.geostats.sgs")
     p = small_problem(H=48, W=48)
@@ -759,25 +765,90 @@ def test_captured_geostats_is_the_eager_loop(cuda_device, vtype,
                  nugget=0.05, vtype=vtype, s=1.3)
     args = (p["xx"], p["yy"], p["cond_bed"], vario)
     kw = dict(radius=10e3, num_points=32, half_window=12)
-    bounds = (np.full(p["xx"].shape, -900.0), p["surf"] - 1.0)
+    bounds = ((np.full(p["xx"].shape, -900.0), p["surf"] - 1.0) if bounded
+              else None)
+    chunks = -(-int(np.isnan(p["cond_bed"]).sum()) // 64)
     captures = []
 
     def capture(body, generator=None):
         captures.append(S.capture_graph(body, generator))
         return captures[-1]
 
+    def bed():
+        before = bounded_draw.launches
+        out = sgs(*args, chunk=64, seed=4, bounds=bounds, device=cuda_device,
+                  **kw)
+        assert bounded_draw.launches - before == chunks
+        return out
+
     monkeypatch.setattr(S, "_chunk_loops", lambda device: (
         functools.partial(S._sgs_loop_captured, capture=capture),
         functools.partial(S._krige_loop_captured, capture=capture)))
-    got = (sgs(*args, chunk=64, seed=4, bounds=bounds, device=cuda_device,
-               **kw),) + krige(*args, chunk=64, device=cuda_device, **kw)
+    got = (bed(),) + krige(*args, chunk=64, device=cuda_device, **kw)
     monkeypatch.setattr(S, "_chunk_loops", lambda device: (
         S._sgs_loop_eager, S._krige_loop_eager))
-    want = (sgs(*args, chunk=64, seed=4, bounds=bounds, device=cuda_device,
-                **kw),) + krige(*args, chunk=64, device=cuda_device, **kw)
+    want = (bed(),) + krige(*args, chunk=64, device=cuda_device, **kw)
     assert len(captures) == 2
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.view(np.int64), w.view(np.int64))
+
+
+@pytest.mark.cuda
+def test_bounded_draw_kernel_matches_plain_and_scipy(cuda_device):
+    """The kernel's quantile function (its float64 probe) over
+    ``torch_helpers.ppf_grid`` against the plain version within
+    ``PPF_ATOL`` max(1, |x|) and against scipy's ``truncnorm.ppf`` within
+    ``scipy_ppf_tolerance``; then whole draws into a grid, bounded (point
+    masses and the sd floor included) and unbounded, against the plain
+    version on the card: the float32 scores within one unit in the last
+    place, one launch each."""
+    from scipy.stats import truncnorm
+
+    from mcmc_tpu_torch.ops.bounded_draw_kernel import (
+        bounded_draw, bounded_draw_reference, truncnorm_ppf,
+        truncnorm_ppf_on_card)
+    from tests.torch_helpers import (PPF_ATOL, ppf_grid,
+                                     scipy_ppf_tolerance)
+
+    q, a, b = ppf_grid()
+    on_card = truncnorm_ppf_on_card(*(torch.as_tensor(v, device=cuda_device)
+                                      for v in (q, a, b))).cpu().numpy()
+    plain = truncnorm_ppf(*(torch.as_tensor(v) for v in (q, a, b))).numpy()
+    scipy = truncnorm.ppf(q, a, b)
+    assert np.isfinite(on_card).all()
+    assert (np.abs(on_card - plain)
+            <= PPF_ATOL * np.maximum(1, np.abs(plain))).all()
+    assert (np.abs(on_card - scipy)
+            <= scipy_ppf_tolerance(q, a, b, scipy)).all()
+
+    rng = np.random.default_rng(2)
+    shape, n = (300, 280), 5000
+    flat = rng.choice(shape[0] * shape[1], n, replace=False)
+    cells = torch.as_tensor(np.stack(np.unravel_index(flat, shape), axis=1),
+                            device=cuda_device)
+    est = torch.as_tensor(rng.normal(0, 1.5, n), dtype=torch.float32,
+                          device=cuda_device)
+    var = torch.as_tensor(rng.uniform(0, 2, n), dtype=torch.float32,
+                          device=cuda_device)
+    var[:7] = 0.0
+    lo = torch.as_tensor(rng.uniform(-4, 1, shape), device=cuda_device)
+    hi = lo + torch.as_tensor(rng.uniform(0, 3, shape), device=cuda_device)
+    hi[tuple(cells[:40].T)] = lo[tuple(cells[:40].T)]
+    for bounds, u in ((None, rng.standard_normal(shape)),
+                      ((lo, hi), rng.uniform(size=shape))):
+        u = torch.as_tensor(u, device=cuda_device)
+        grids = [torch.full(shape, np.nan, dtype=torch.float32,
+                            device=cuda_device) for _ in range(2)]
+        before = bounded_draw.launches
+        bounded_draw(grids[0], cells, est, var, u, *(bounds or (None, None)))
+        assert bounded_draw.launches == before + 1
+        bounded_draw_reference(grids[1], cells, est, var, u,
+                               *(bounds or (None, None)))
+        got, want = (g.cpu().numpy() for g in grids)
+        np.testing.assert_array_max_ulp(got[tuple(cells.cpu().numpy().T)],
+                                        want[tuple(cells.cpu().numpy().T)],
+                                        maxulp=1)
+        assert np.isnan(got).sum() == shape[0] * shape[1] - n
 
 
 # --- the gstools-SRF proposal's harmonic sum ---------------------------------

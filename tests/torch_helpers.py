@@ -108,3 +108,43 @@ def small_sgs_chain(p, vario=("Matern", 2.5e3, 1.0, 0.0, 1.3), blocks=(5, 12),
     c.set_sgs_param(48, 30e3)
     c.set_block_sizes(blocks[0], blocks[1], blocks[0], blocks[1])
     return c
+
+
+# the truncated normal's quantile grid of the card's draw kernel
+# (ops/bounded_draw_kernel.py): bounds from one-sided tails to |a|, |b| =
+# 40, intervals straddling 0, narrow intervals, and u within 1e-12 of 0
+# and 1 (the largest uniform below 1 included)
+PPF_ENDS = (-40.0, -38.0, -20.0, -5.0, -2.0, -1.0, -0.5, -1e-3, 0.0, 1e-3,
+            0.5, 1.0, 2.0, 5.0, 20.0, 38.0, 40.0)
+PPF_Q = (0.0, 1e-300, 1e-12, 1e-9, 1e-6, 0.1, 0.37, 0.5, 0.9, 1 - 1e-6,
+         1 - 1e-9, 1 - 1e-12, float(np.nextafter(1.0, 0.0)))
+PPF_NARROW = ((-39.0, (1e-12, 1e-6, 1e-3)), (-1.0, (1e-12, 1e-6, 1e-3)),
+              (0.0, (1e-12, 1e-3)), (10.0, (1e-9, 1e-3)),
+              (39.0, (1e-12, 1e-3)))
+PPF_ATOL = 1e-9  # times max(1, |x|)
+
+
+def ppf_grid():
+    """(q, a, b) float64 arrays of the quantile grid above."""
+    rows = [(q, a, b) for a in PPF_ENDS for b in PPF_ENDS if a < b
+            for q in PPF_Q]
+    rows += [(q, a, a + w) for a, ws in PPF_NARROW for w in ws
+             for q in PPF_Q]
+    return tuple(np.array(c, np.float64) for c in zip(*rows))
+
+
+def scipy_ppf_tolerance(q, a, b, x):
+    """How far a draw may lie from scipy's ``truncnorm.ppf`` value ``x``:
+    ``PPF_ATOL`` max(1, |x|), and where a < 0 < x, beyond it the rounding
+    of scipy's own left case, log(Φ(a) + q·m) summed in log space near
+    log Φ(x) ~ 0: 8 ulp of its larger term times dx/dy = Φ(x)/φ(x)."""
+    from scipy import special
+    from scipy.stats import norm
+
+    with np.errstate(divide="ignore", over="ignore"):
+        mass = np.log1p(-special.ndtr(a) - special.ndtr(-b))
+        big = np.abs(np.maximum(special.log_ndtr(a), np.log(q) + mass)) + 1
+        slope = np.exp(special.log_ndtr(x) - norm.logpdf(x))
+    cond = np.where((a < 0) & (x > 0), 8 * np.finfo(float).eps * big * slope,
+                    0.0)
+    return PPF_ATOL * np.maximum(1.0, np.abs(x)) + cond

@@ -16,12 +16,18 @@ cell up as ``cardbench/run.py`` does and runs its window with
   and how many carry the user-annotation flag that keeps them out of the
   card's busy time;
 - what the spans give: the mean ``mcmc.sgs.draw``, ``.wait`` and
-  ``.replay`` (``draw_us``, ``wait_us``, ``launch_us``); a bed's fixed
-  cost, each ``mcmc.sgs`` less the ``mcmc.sgs.chunk`` spans in it
-  (``bed_fixed_ms``), and the beds' ``mcmc.sgs`` against the harness's
-  ``cardbench.bed``; a segment's prologue, each ``mcmc.run_chains`` from
-  its start to its first ``mcmc.run_chains.replay``
-  (``segment_prologue_us``), beside ``segment_gap_ms.farm``;
+  ``.replay`` (``draw_us``, ``wait_us``, ``launch_us``; on the card a
+  chunk draws on the device, so it has no ``.wait`` or ``.draw``, and
+  ``draw_us`` is the bed's one draw and upload, ``host_draws_a_bed``
+  ``.draw`` spans a bed); a bed's fixed cost, each ``mcmc.sgs`` less the
+  ``mcmc.sgs.chunk`` spans in it (``bed_fixed_ms``), and the beds'
+  ``mcmc.sgs`` against the harness's ``cardbench.bed``; a segment's
+  prologue, each ``mcmc.run_chains`` from its start to its first
+  ``mcmc.run_chains.replay`` (``segment_prologue_us``), beside
+  ``segment_gap_ms.farm``;
+- ``card_draw_share``: the window's chunks drawn on the card (launches of
+  ``ops/bounded_draw_kernel.bounded_draw``, replays included) over all
+  its beds' chunks, traced or not;
 - ``rates``: each unit of the window, traced ones first, as the run logs.
 """
 
@@ -93,6 +99,8 @@ def span_numbers(spans) -> dict:
         harness = [x for x in spans if x[2] == "cardbench.bed"]
         out.update(bed_fixed_ms=_mean(fixed),
                    chunks_a_bed=len(chunks) / len(beds),
+                   host_draws_a_bed=len(by.get("mcmc.sgs.draw", []))
+                   / len(beds),
                    sgs_ms=sum(b[1] - b[0] for b in beds) * 1e-6,
                    harness_bed_ms=sum(b[1] - b[0] for b in harness) * 1e-6)
     calls = [x for x in spans if x[2] == "mcmc.run_chains"]
@@ -120,6 +128,7 @@ def main(argv=None) -> int:
 
     from cardbench import core
     from cardbench import trace as tracing
+    from mcmc_tpu_torch.ops.bounded_draw_kernel import bounded_draw
 
     if not torch.cuda.is_available():
         core.log("span_report: no CUDA device (no fallback to the CPU)")
@@ -128,10 +137,15 @@ def main(argv=None) -> int:
     kind = importlib.import_module("cardbench." + c["traffic"]["kind"])
     st = kind.setup(c["cfg"], c["traffic"], args.seed, "cuda")
     setup_s = time.perf_counter() - T0
+    drawn = bounded_draw.launches
     w = kind.window(st, args.seconds, True)
+    drawn = bounded_draw.launches - drawn
     prof = w.pop("prof")
     view = tracing.reduce_profile(prof)
     kind.fill_view(st, w, view)
+    share = ({"card_draw_share": drawn / (len(w["beds"]) * view.steps
+                                          / w["profiled"])}
+             if "beds" in w else {})
     result = {"workload": args.workload, "seed": args.seed,
               "device": torch.cuda.get_device_name(0),
               "gpu": core.query_gpu(), "setup_s": setup_s,
@@ -140,7 +154,7 @@ def main(argv=None) -> int:
               "window_s": view.window_s, "busy_s": view.busy_s,
               "idle_gaps": view.idle_gaps, "device_ops": view.device_ops(),
               "device_annotations": device_annotations(prof),
-              **span_numbers(host_spans(prof)),
+              **span_numbers(host_spans(prof)), **share,
               "profiled": w["profiled"], "rates": kind.rates(st, w)}
     print(json.dumps(result), flush=True)
     return 0
