@@ -125,14 +125,22 @@ line or more each:
    ``fit_variogram`` on the radar picks, two ``generate_initial_beds``
    at 512^2 (exponential fit, bounded below the surface): data honoured
    within 1 m, the bounds kept, the seeds' beds different and the same
-   seed's bitwise; ``krige`` at 512^2; the same call on a 128^2 cut on
+   seed's bitwise, every chunk drawn on the card (one launch of the draw
+   kernel a chunk); ``krige`` at 512^2; the same call on a 128^2 cut on
    the card and on the CPU within 5e-2 m; the beds as a 2-chain CRF
    farm's initial beds for 50 steps, all on the captured chunk loop
    (one CUDA graph a call, replayed a chunk); then the first bed, a
    bounded Matern bed and the ``krige`` maps on the eager loop against
    the captured one, bitwise, with seconds a bed, ms a chunk, capture
    ms and added peak memory; and on each loop 20 profiled chunks'
-   Python-launched and device ops, idle share and graph nodes;
+   Python-launched and device ops, idle share and graph nodes, drawn on
+   the card as ``sgs`` draws there; then the draw kernel
+   (``[bounded-draw]``, ``ops/csrc/bounded_draw.cu``) against its plain
+   version at the chunk's shape, 64 cells of 512^2 planes: 200 chunks of
+   a bed's path (their kriging est and var, bounded and unbounded) and
+   stress cells in both tails, by 0 and 1 and at point masses, each
+   score within 1 float32 step; the kernel's time, the plain version's,
+   an empty kernel's on one CTA and the bound by bytes;
 19. the gstools-SRF proposal method (``[srf]``): the SRF kernel
    (``ops/csrc/srf_kernel.cu``, the harmonic sum of 1000 modes as a
    separable product in 3xTF32 on the tensor cores) at the CRF headline
@@ -242,18 +250,22 @@ proposals with block menu 50-80 in 5 steps; and the SGS chain at the
 reference's production settings (blocks 5-20, 48 neighbours within
 30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
 10 km).  The second-to-last line is a JSON object describing the seven
-kernels, the per-chain draw kernel and the SRF kernel: each one's
+kernels, the per-chain draw kernel, the SRF kernel and the T2 draw
+kernel: each one's
 launches on the path that runs it (counts set to 0 just before the path
 and read just after; the draw kernel's over phase 14's SGS list-seeded
 runs, whose draw plan its times are from; the SRF kernel's over phase
-19's main path, its times from the headline case), its error against its plain version, its
+19's main path, its times from the headline case; the T2 draw kernel's
+over phase 18's two beds, its times from ``[bounded-draw]``), its error
+against its plain version, its
 time, the plain version's, the least time the card could take for the
 same work (``bound_ms``: the bytes the function must move at
 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever is larger;
 the SRF kernel's its 3xTF32 products at 495 TFLOP/s)
 and, where one PyTorch call computes the same function, that call's
 time.  Phases 16-21 run last and count their own launches, so the line's
-``launches`` are those of the paths above (the SRF kernel's its own).  The last line is the JSON
+``launches`` are those of the paths above (the SRF kernel's and the T2
+draw kernel's their own).  The last line is the JSON
 contract ``{"ok": true, "device": ...}``.
 """
 
@@ -284,7 +296,8 @@ SGS_PARITY_STEPS = 10
 SGS_SEGMENTS = 3
 SGS_SEGMENT = 400
 KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
-                  "lut_kernel", "noise_kernel", "chain_draws", "srf_kernel")
+                  "lut_kernel", "noise_kernel", "chain_draws", "srf_kernel",
+                  "bounded_draw")
 NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
 K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
@@ -311,6 +324,13 @@ GEO_SEED = 11            # [geostats]: the first bed's seed
 GEO_CUT = 128            # [geostats]: the card-vs-CPU cut of the grid
 GEO_PROFILE_CHUNKS = 20
 GEO_MATERN_S = 1.3       # [geostats]: the bounded Matérn bed (the reference's)
+BD_CHUNKS = 200          # [bounded-draw]: recorded chunks of a bed's path
+BD_ULP_MAX = 1           # kernel vs plain version: float32 steps of a score
+# [bounded-draw]'s stress cells (est 0, sd 1, so a draw is its quantile):
+# uniforms by 0 and 1, and bounds in both tails, across 0 and narrow
+BD_STRESS_Q = (1e-12, 1e-3, 0.5, 1 - 1e-3, 1 - 1e-12)
+BD_STRESS_AB = ((-40.0, -30.0), (30.0, 40.0), (-1.0, 1.0), (-0.5, 40.0),
+                (-40.0, 0.5), (2.0, 2.001), (-1e-3, 1e-3))
 # the runtime calls by which Python launches device work (profiler events)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
@@ -355,6 +375,9 @@ KERNELS = (
     # the port's own kernel: the gstools-SRF proposal's harmonic sum, which
     # the JAX package computes with XLA ops (no pallas_call) at this site
     ("srf_harmonics", "srf_kernel.cu", "mcmc_tpu/ops/srf.py:121"),
+    # the port's own kernel: the T2 chunk's draws and their scatter, which
+    # the JAX package makes with scipy on the host (no pallas_call) here
+    ("bounded_draw", "bounded_draw.cu", "mcmc_tpu/geostats/sgs.py:196"),
 )
 
 # kernel vs plain version bounds
@@ -3063,12 +3086,24 @@ def _same_array(a, b):
                                np.ascontiguousarray(b).view(np.uint8)))
 
 
+class _TickingGraph:
+    """A captured graph that calls ``tick()`` before each replay."""
+
+    def __init__(self, graph, tick):
+        self.graph, self.tick = graph, tick
+
+    def replay(self):
+        self.tick()
+        self.graph.replay()
+
+
 @contextlib.contextmanager
-def _geo_loops(way, keep_graph=False):
+def _geo_loops(way, keep_graph=False, tick=None):
     """Inside, ``sgs`` and ``krige`` on the card run ``way``'s chunk loops:
     "eager" (the plain versions, every op launched from Python) or
-    "graph" (the captured ones ``sgs`` runs there, each capture timed).
-    Yields the list of (graph if ``keep_graph`` else None, capture ms)."""
+    "graph" (the captured ones ``sgs`` runs there, each capture timed, and
+    ``tick()`` called before each replay where given).  Yields the list
+    of (graph if ``keep_graph`` else None, capture ms)."""
     import importlib
 
     import torch
@@ -3084,7 +3119,7 @@ def _geo_loops(way, keep_graph=False):
         graph = capture_graph(body, generator, keep_graph=keep_graph)
         captures.append((graph if keep_graph else None,
                          (time.perf_counter() - t0) * 1e3))
-        return graph
+        return graph if tick is None else _TickingGraph(graph, tick)
 
     loops = S._chunk_loops
     S._chunk_loops = ((lambda device: (S._sgs_loop_eager,
@@ -3104,16 +3139,19 @@ def _profiled_chunks(p, vario, bounds, card, way, pinned=True):
     """[geostats], one way ("eager" or "graph", ``_geo_loops``):
     GEO_PROFILE_CHUNKS chunks of the bounded SGS loop at full width
     profiled after as many warm ones, through the loop ``sgs`` runs that
-    way (the host's truncated-normal draws included): device ops,
-    Python-launched device ops (the runtime calls LAUNCH_CALLS) and
-    device-busy ms a chunk, the idle share of the profiled wall, and the
-    captured loop's graph nodes a chunk (its DOT dump).  ``pinned=False``
-    solves with torch's default batched LU (MAGMA's, eager only), not
-    the cuBLAS one ``sgs`` pins on the card (``_batched_lu``)."""
+    way on the card, drawing there as ``sgs`` does (``_CardDraws``):
+    device ops, Python-launched device ops (the runtime calls
+    LAUNCH_CALLS) and device-busy ms a chunk, the idle share of the
+    profiled wall, and the captured loop's graph nodes a chunk (its DOT
+    dump).  The window is whole chunks, the card synchronized at both
+    ends: after the eager loop's ``per``-th and 2 ``per``-th scatter, or
+    before the captured loop's ``per``-th and 2 ``per``-th replay.
+    ``pinned=False`` solves with torch's default batched LU (MAGMA's,
+    eager only), not the cuBLAS one ``sgs`` pins on the card
+    (``_batched_lu``)."""
     import importlib
 
     import torch
-    from scipy.stats import truncnorm
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3125,31 +3163,36 @@ def _profiled_chunks(p, vario, bounds, card, way, pinned=True):
     lo_b, hi_b = (prep["nst"].transform_np(np.broadcast_to(b, (GRID, GRID)))
                   for b in bounds)
     zg = S._score_grid(prep, dev)
-    path = prep["cells"][:(2 * per + 1) * kw["chunk"]]
-    rng = np.random.default_rng(0)
+    path = prep["cells"][:(2 * per + 2) * kw["chunk"]]
+    draws = S._CardDraws(np.random.default_rng(0), path, (lo_b, hi_b), zg)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    drawn, window = [], {}
+    ticks, window = [0], {}
 
-    def draw(cells, est, var):
-        # est and var are on the host, so the device is idle here: the
-        # window is whole chunks, from draw `per` to draw 2 `per`
-        if len(drawn) == per:
+    def tick():
+        ticks[0] += 1
+        if ticks[0] in (per, 2 * per):
+            torch.cuda.synchronize()
+        if ticks[0] == per:
             prof.start()
             window["t0"] = time.perf_counter()
-        elif len(drawn) == 2 * per:
-            torch.cuda.synchronize()
+        elif ticks[0] == 2 * per:
             window["wall_us"] = (time.perf_counter() - window["t0"]) * 1e6
             prof.stop()
-        drawn.append(len(cells))
-        sd = np.maximum(np.sqrt(np.abs(var)), 1e-12)
-        lo, hi = (b[cells[:, 0], cells[:, 1]] for b in (lo_b, hi_b))
-        return truncnorm.rvs((lo - est) / sd, (hi - est) / sd, loc=est,
-                             scale=sd, random_state=rng)
 
+    if way == "eager":
+        scatter = draws.scatter
+
+        def ticking(*args):
+            scatter(*args)
+            tick()
+
+        draws.scatter = ticking
     lu = S._batched_lu(dev) if pinned else contextlib.nullcontext()
-    with _geo_loops(way, keep_graph=True) as captures, lu:
+    loops = _geo_loops(way, keep_graph=True,
+                       tick=tick if way == "graph" else None)
+    with loops as captures, lu:
         S._chunk_loops(dev)[0](prep, zg, path, kw["radius"], kw["chunk"],
-                               draw)
+                               draws)
     torch.cuda.synchronize()
     events = prof.key_averages()
     on_device = _device_events(events)
@@ -3187,7 +3230,9 @@ def phase_geostats(p, card):
     the exponential fit (2 beds, surf bounds, GEO_KW): the data cells
     honoured within GEO_DATA_ATOL, every simulated cell within
     [nanmin(data) - 2000, surf - 1] to GEO_BOUND_ATOL, the two beds
-    differ and the same seed reproduces the first bitwise; ``krige`` at
+    differ and the same seed reproduces the first bitwise, and each chunk
+    of the two beds drawn on the card, one launch of the draw kernel
+    (``bounded_draw.launches``, zeroed just before); ``krige`` at
     GRID^2 (finite maps, the mean honouring the data); the same ``sgs``
     call on a GEO_CUT^2 cut on the card and on the CPU within
     GEO_CPU_ATOL; the two beds as a 2-chain CRF farm's initial beds,
@@ -3198,12 +3243,14 @@ def phase_geostats(p, card):
     the captured loop, bitwise; seconds a bed and ms a chunk, capture ms
     and added peak memory; and each loop's profiled chunks
     (``_profiled_chunks``), and the eager loop's under torch's default
-    batched LU."""
+    batched LU.  Returns the draw kernel's launches in the two beds, and
+    the variogram and bounds of [bounded-draw]."""
     import torch
 
     from mcmc_tpu_torch import MultiChainSampler
     from mcmc_tpu_torch.geostats import (fit_variogram, generate_initial_beds,
                                          krige)
+    from mcmc_tpu_torch.ops.bounded_draw_kernel import bounded_draw
 
     # the chunk loop is host-bound: start it with the caching allocator
     # emptied of the earlier phases' multi-GB blocks
@@ -3224,9 +3271,11 @@ def phase_geostats(p, card):
     lower = float(np.nanmin(cond) - 2000.0)
     beds_kw = dict(surf=surf, seed=GEO_SEED, device=DEVICE, **GEO_KW)
     torch.cuda.synchronize()
+    bounded_draw.launches = 0
     t0 = time.perf_counter()
     beds = generate_initial_beds(xx, yy, cond, vario, n_beds=2, **beds_kw)
     t_beds = time.perf_counter() - t0
+    draw_launches = bounded_draw.launches
     again = generate_initial_beds(xx, yy, cond, vario, n_beds=1,
                                   **beds_kw)[0]
     n_cells = int((~m).sum())
@@ -3262,6 +3311,7 @@ def phase_geostats(p, card):
         "above the lower bound": below <= GEO_BOUND_ATOL,
         "beds differ": not np.array_equal(beds[0], beds[1]),
         "same seed bitwise": np.array_equal(again, beds[0]),
+        "a draw launch a chunk": draw_launches == 2 * n_chunks,
         "krige finite": bool(np.isfinite(mean).all()
                              and np.isfinite(std).all()),
         "krige honours data": krige_err <= GEO_DATA_ATOL,
@@ -3275,7 +3325,8 @@ def phase_geostats(p, card):
           f"{GEO_KW['num_points']}, chunk {GEO_KW['chunk']}, half_window "
           f"{GEO_KW['half_window']}): {per_bed:.2f} s a bed, {n_chunks} "
           f"chunks of {n_cells} cells, {per_bed / n_chunks * 1e3:.3f} ms a "
-          f"chunk | data cells max |err| {data_err:.3e} m, max above surf "
+          f"chunk, {draw_launches} draw-kernel launches in the two beds | "
+          f"data cells max |err| {data_err:.3e} m, max above surf "
           f"- 1 {above:.3e} m, max below the lower bound {below:.3e} m | "
           f"krige at {GRID}^2 in {t_krige:.2f} s, data max |err| "
           f"{krige_err:.3e} m ({card})", flush=True)
@@ -3348,7 +3399,116 @@ def phase_geostats(p, card):
     # what the pinned cuBLAS LU costs the device a chunk against MAGMA's
     rows["eager-default-lu"] = _profiled_chunks(
         p, vario, (lower, surf - 1.0), card, "eager", pinned=False)
-    return dict(seconds_per_bed=per_bed, chunks=n_chunks, profiled=rows)
+    return dict(seconds_per_bed=per_bed, chunks=n_chunks, profiled=rows,
+                draw_launches=draw_launches, vario=vario,
+                bounds=(lower, surf - 1.0))
+
+
+def _stress_draws(dev):
+    """[bounded-draw]'s stress cells: (grid, cells, est, var, u, lo, hi)
+    with est 0 and var 1, every BD_STRESS_Q uniform on every
+    BD_STRESS_AB interval, and four point masses (lo == hi)."""
+    import torch
+
+    cases = [(q, a, b) for a, b in BD_STRESS_AB for q in BD_STRESS_Q]
+    cases += [(0.5, v, v) for v in (-3.0, 0.0, 1e-3, 7.5)]
+    n = len(cases)
+    cells = np.stack([np.arange(n) // 8, 2 * (np.arange(n) % 8)], axis=1)
+    planes = np.zeros((3, GRID, GRID))
+    planes[:, cells[:, 0], cells[:, 1]] = np.array(cases).T
+    u, lo, hi = (torch.as_tensor(a, device=dev) for a in planes)
+    return (torch.zeros((GRID, GRID), dtype=torch.float32, device=dev),
+            torch.as_tensor(cells, device=dev),
+            torch.zeros(n, dtype=torch.float32, device=dev),
+            torch.ones(n, dtype=torch.float32, device=dev), u, lo, hi)
+
+
+def phase_bounded_draw(p, vario, bounds, card):
+    """[bounded-draw]: the T2 chunk's draw kernel
+    (``ops/bounded_draw_kernel.bounded_draw``) against its plain version
+    on the card at the chunk's shape, GEO_KW's chunks of 64 cells of
+    GRID^2 planes.  The operands are BD_CHUNKS chunks of a bed's path
+    ([geostats]' variogram and bounds, the seed GEO_SEED): each chunk's
+    kriging (est, var) solved on the grid as the kernel left it, with
+    the bed's uniforms (bounded) and, on the same chunks, its standard
+    normals (unbounded); then the stress cells (``_stress_draws``).  Each
+    draw's float32 score within BD_ULP_MAX float32 steps of the plain
+    version's, and finite.  Per launch, over the bounded chunks: the
+    kernel's and the plain version's ms (CUDA events, plain / kernel /
+    kernel / plain), an empty kernel on one CTA (the launch's floor), and
+    the bound by the bytes a chunk moves.  Returns the ``kernels`` row."""
+    import importlib
+
+    import torch
+
+    from mcmc_tpu_torch.ops.bounded_draw_kernel import (
+        bounded_draw, bounded_draw_reference)
+
+    S = importlib.import_module("mcmc_tpu_torch.geostats.sgs")
+    kw, C = GEO_KW, GEO_KW["chunk"]
+    dev = torch.device(DEVICE)
+    prep = S._prepare(p["xx"], p["cond_bed"], vario, None, kw["num_points"],
+                      "ok", kw["half_window"], dev)
+    tb = [np.asarray(prep["nst"].transform_np(np.broadcast_to(b, (GRID,
+                                                                GRID))))
+          for b in bounds]
+    rng = np.random.default_rng(GEO_SEED)
+    path = prep["cells"][rng.permutation(len(prep["cells"]))][
+        :BD_CHUNKS * C]
+    zg = S._score_grid(prep, dev)
+    modes = {"bounded": S._CardDraws(rng, path, tb, zg),
+             "unbounded": S._CardDraws(rng, path, None, zg)}
+    path_t = torch.as_tensor(path, device=dev)
+    chunks = []
+    with S._batched_lu(dev):
+        for k in range(BD_CHUNKS):
+            cells = path_t[k * C: (k + 1) * C]
+            est, var = S._solve(prep, zg, *cells.unbind(1), kw["radius"])
+            chunks.append((cells, est.clone(), var.clone()))
+            modes["bounded"].scatter(zg, cells, est, var)
+    ops = {mode: [(torch.zeros_like(zg), cells, est, var, d.u,
+                   *(d.bounds or (None, None)))
+                  for cells, est, var in chunks]
+           for mode, d in modes.items()}
+    ops["stress"] = [_stress_draws(dev)]
+    worst = {}
+    for mode, recorded in ops.items():
+        got, want = (torch.zeros_like(zg) for _ in range(2))
+        for grid, *args in recorded:
+            bounded_draw(got, *args)
+            bounded_draw_reference(want, *args)
+        cells = torch.cat([op[1] for op in recorded])
+        a, b = (g[cells[:, 0], cells[:, 1]].cpu() for g in (got, want))
+        worst[mode] = dict(
+            ulps=int(_ulps(a, b).max()) if a.isfinite().all() else None,
+            err=float((a.double() - b.double()).abs().max()),
+            finite=bool(a.isfinite().all() and b.isfinite().all()),
+            cells=int(cells.shape[0]))
+    plain_ms, ms = _pair_times(bounded_draw_reference, bounded_draw,
+                               ops["bounded"])
+    floor_ms = _empty_floor(1, len(ops["bounded"]))
+    nbytes = C * (16 + 8 + 24 + 4)  # cells, (est, var), u lo hi; score
+    bound_ms, bound_by = _bound(nbytes)
+    print(f"[bounded-draw] {BD_CHUNKS} chunks of {C} cells of a {GRID}^2 "
+          f"bed's path (the geostats variogram and bounds) and "
+          f"{worst['stress']['cells']} stress cells: kernel vs plain "
+          + ", ".join(f"{mode} max {w['ulps']} float32 steps, max |err| "
+                      f"{w['err']:.3e} over {w['cells']} cells"
+                      for mode, w in worst.items())
+          + f" (bound {BD_ULP_MAX} step) | per launch: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, an empty kernel on one CTA "
+          f"{floor_ms:.4f} ms | bound {bound_ms:.3e} ms by {bound_by} "
+          f"({nbytes:,} B) = {bound_ms / ms:.2e} of the kernel's time: "
+          f"a launch of one CTA is latency-bound ({card}; CUDA events)",
+          flush=True)
+    bad = [mode for mode, w in worst.items()
+           if not w["finite"] or w["ulps"] > BD_ULP_MAX]
+    if bad:
+        raise RuntimeError(f"the bounded-draw kernel disagrees with its "
+                           f"plain version: {bad}")
+    return dict(max_abs_err=max(w["err"] for w in worst.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def make_srf_chain(p):
@@ -4811,11 +4971,16 @@ def main():
                                                  card)
     launches["masked_cg"] = phase_entry_point(p, card)
     phase_entry_seed_list(p, card)
-    for tag, phase in (("run", phase_run), ("collect", phase_collect),
-                       ("geostats", phase_geostats)):
+    for tag, phase in (("run", phase_run), ("collect", phase_collect)):
         t0 = time.perf_counter()
         phase(p, card)
         print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    geo = phase_geostats(p, card)
+    launches["bounded_draw"] = geo["draw_launches"]
+    rows["bounded_draw"] = phase_bounded_draw(p, geo["vario"], geo["bounds"],
+                                              card)
+    print(f"[geostats] phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows["srf_harmonics"], launches["srf_harmonics"] = phase_srf(p, card)
     print(f"[srf] phase {time.perf_counter() - t0:.1f} s", flush=True)

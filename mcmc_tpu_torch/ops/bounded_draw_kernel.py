@@ -146,8 +146,6 @@ def bind_library(lib):
     lib.mcmc_truncnorm_ppf.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_void_p]
     lib.mcmc_truncnorm_ppf.restype = ctypes.c_int
-    lib.mcmc_bounded_draw_empty.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.mcmc_bounded_draw_empty.restype = ctypes.c_int
     lib.mcmc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -238,17 +236,5 @@ def truncnorm_ppf_on_card(q, a, b):
     return out
 
 
-def empty_bounded_draw_launch(n: int, device=None):
-    """An empty kernel on the grid of a launch for ``n`` cells, on the
-    current stream: that launch's floor."""
-    lib = _cuda_library()
-    device = torch.device("cuda" if device is None else device)
-    with torch.cuda.device(device):
-        _raise_on(lib, lib.mcmc_bounded_draw_empty(
-            int(n), torch.cuda.current_stream(device).cuda_stream),
-            "empty launch")
-
-
-__all__ = ["bounded_draw", "bounded_draw_reference",
-           "empty_bounded_draw_launch", "ndtri_exp", "truncnorm_ppf",
-           "truncnorm_ppf_on_card"]
+__all__ = ["bounded_draw", "bounded_draw_reference", "ndtri_exp",
+           "truncnorm_ppf", "truncnorm_ppf_on_card"]

@@ -43,9 +43,9 @@
 // both sides of 0 takes no second path; Newton steps only below y = -700.
 // (The first design computed the left case, then the right case where its
 // x > 0, and polished ndtri_exp by Newton steps below y = -2: every warp
-// took both cases and the steps: 24.5 us a chunk against an empty launch's
-// 0.8 on an H100 SXM at 700 W, tools/t2_chunk_report.py.)  It sits inside
-// the captured chunk, after the kriging solve, where it replaces the host's
+// took both cases and the steps, 48.6 us a launch in a profiled 512^2 bed
+// on an H100 SXM at 700 W, a chunk 35 us longer.)  It sits inside the
+// captured chunk, after the kriging solve, where it replaces the host's
 // wait, scipy's draws and the upload of the draws.
 //
 // Build (plain C interface, loaded with ctypes):
@@ -158,8 +158,6 @@ ppf_kernel(const double* __restrict__ q, const double* __restrict__ a,
   if (t < n) out[t] = truncnorm_ppf(q[t], a[t], b[t]);
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 extern "C" int mcmc_bounded_draw(void* grid, long long width,
@@ -184,15 +182,6 @@ extern "C" int mcmc_truncnorm_ppf(const void* q, const void* a,
   ppf_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                (cudaStream_t)stream>>>((const double*)q, (const double*)a,
                                        (const double*)b, (double*)out, n);
-  return (int)cudaGetLastError();
-}
-
-// An empty kernel on the grid of a launch for ``n`` cells: that launch's
-// floor.
-extern "C" int mcmc_bounded_draw_empty(int n, void* stream) {
-  if (n <= 0) return 0;
-  empty_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -122,6 +122,9 @@ PPF_NARROW = ((-39.0, (1e-12, 1e-6, 1e-3)), (-1.0, (1e-12, 1e-6, 1e-3)),
               (0.0, (1e-12, 1e-3)), (10.0, (1e-9, 1e-3)),
               (39.0, (1e-12, 1e-3)))
 PPF_ATOL = 1e-9  # times max(1, |x|)
+# the most scipy's left case loses where a < 0 < x, times max(1, |x|): x
+# off by 0.0101 at the largest uniform below 1 over the grid (8.2095)
+SCIPY_LOSS_CAP = 2e-2
 
 
 def ppf_grid():
@@ -137,7 +140,10 @@ def scipy_ppf_tolerance(q, a, b, x):
     """How far a draw may lie from scipy's ``truncnorm.ppf`` value ``x``:
     ``PPF_ATOL`` max(1, |x|), and where a < 0 < x, beyond it the rounding
     of scipy's own left case, log(Φ(a) + q·m) summed in log space near
-    log Φ(x) ~ 0: 8 ulp of its larger term times dx/dy = Φ(x)/φ(x)."""
+    log Φ(x) ~ 0: 8 ulp of its larger term times dx/dy = Φ(x)/φ(x), at
+    most ``SCIPY_LOSS_CAP`` max(1, |x|).  Where that term exceeds the
+    plain tolerance, the CPU tests hold the plain version to the
+    60-digit quantile instead."""
     from scipy import special
     from scipy.stats import norm
 
@@ -145,6 +151,9 @@ def scipy_ppf_tolerance(q, a, b, x):
         mass = np.log1p(-special.ndtr(a) - special.ndtr(-b))
         big = np.abs(np.maximum(special.log_ndtr(a), np.log(q) + mass)) + 1
         slope = np.exp(special.log_ndtr(x) - norm.logpdf(x))
-    cond = np.where((a < 0) & (x > 0), 8 * np.finfo(float).eps * big * slope,
-                    0.0)
-    return PPF_ATOL * np.maximum(1.0, np.abs(x)) + cond
+    scale = np.maximum(1.0, np.abs(x))
+    cond = np.where((a < 0) & (x > 0), np.minimum(
+        8 * np.finfo(float).eps * big * slope, SCIPY_LOSS_CAP * scale), 0.0)
+    tol = PPF_ATOL * scale + cond
+    assert np.isfinite(tol).all()
+    return tol

@@ -1,25 +1,18 @@
 #!/usr/bin/env python3
-"""The T2 chunk on the card: the bounded-draw kernel and a bed's replays.
+"""A T2 bed's replays on the card, timed on the host's clock.
 
     python3 tools/t2_chunk_report.py [--seed <n>] [--beds <k>]
 
 From the root of a checkout on a machine with an NVIDIA GPU; no profiler
-runs.  Prints one JSON line:
-
-- ``kernel``: ``ops/bounded_draw_kernel.bounded_draw`` on a chunk of 64
-  cells of a 512² grid (bounded), device µs a launch over 2,000 launches
-  captured in one CUDA graph and replayed (CUDA events; from Python a
-  launch costs the host far more than the card), beside an empty launch
-  on its grid (the floor), and the plain version on the card, launched
-  from Python; the bytes a launch reads and writes and their time at
-  3.35 TB/s;
-- ``beds``: ``crf512.initbeds``'s beds (its problem and configuration
-  from ``--seed``, one warm bed first): each bed's seconds and cells/s,
-  its chunks, the launches of the draw kernel, and the host's time a
-  replay, ``perf_counter`` from one replay's start to the next over the
-  first 64 replays and over all of them; ``drain_ms``, from the last
-  replay's start to the grid on the host, is the work the host left
-  queued for the card.
+runs.  Builds ``crf512.initbeds``'s problem and configuration from
+``--seed``, makes one warm bed, then ``--beds`` more, and prints one JSON
+line with each bed's seconds and cells/s, its chunks, the draw kernel's
+launches, and the host's time a replay: ``perf_counter`` from one
+replay's start to the next, over all of a bed's replays (the loop's time
+over its chunks) and over its first 64; ``drain_ms``, from the last
+replay's start to the grid on the host, is the work the host left queued
+for the card.  The kernel's own time is ``chip_smoke.py``'s
+``[bounded-draw]``.
 """
 
 import argparse
@@ -35,72 +28,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent.parent
 CHUNK = 64
-LAUNCHES = 2000
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def _events_us(fn, n, graph=False):
-    """Mean µs of ``fn()`` over ``n`` calls back to back (CUDA events),
-    launched from Python or, with ``graph``, captured in one CUDA graph
-    (the launch counters put back, as a capture runs nothing)."""
-    import torch
-
-    from mcmc_tpu_torch.ops.launch_counts import uncounted
-
-    def calls():
-        for _ in range(n):
-            fn()
-
-    fn()
-    run = calls
-    if graph:
-        g = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(g):
-                calls()
-
-        uncounted(capture)
-        run = g.replay
-        run()
-    torch.cuda.synchronize()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    run()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) * 1e3 / n
-
-
-def kernel_numbers(seed: int) -> dict:
-    import torch
-
-    from mcmc_tpu_torch.ops.bounded_draw_kernel import (
-        bounded_draw, bounded_draw_reference, empty_bounded_draw_launch)
-
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    shape = (512, 512)
-    flat = rng.choice(shape[0] * shape[1], CHUNK, replace=False)
-    cells = torch.as_tensor(np.stack(np.unravel_index(flat, shape), axis=1),
-                            device=dev)
-    est = torch.as_tensor(rng.normal(0, 1, CHUNK), dtype=torch.float32,
-                          device=dev)
-    var = torch.as_tensor(rng.uniform(0.05, 1, CHUNK), dtype=torch.float32,
-                          device=dev)
-    u = torch.as_tensor(rng.uniform(size=shape), device=dev)
-    lo = torch.as_tensor(rng.uniform(-4, 0, shape), device=dev)
-    hi = lo + torch.as_tensor(rng.uniform(0.5, 4, shape), device=dev)
-    grid = torch.zeros(shape, dtype=torch.float32, device=dev)
-    args = (grid, cells, est, var, u, lo, hi)
-    nbytes = CHUNK * (16 + 8 + 24 + 4)
-    return {"card_us": _events_us(lambda: bounded_draw(*args), LAUNCHES,
-                                  graph=True),
-            "empty_us": _events_us(lambda: empty_bounded_draw_launch(CHUNK),
-                                   LAUNCHES, graph=True),
-            "plain_us": _events_us(lambda: bounded_draw_reference(*args),
-                                   200),
-            "bytes": nbytes, "bound_us": nbytes / PEAK_BYTES_PER_S * 1e6}
 
 
 class _TimedGraph:
@@ -169,8 +96,7 @@ def main(argv=None) -> int:
         return 2
     beds = bed_numbers(args.seed, args.beds)
     result = {"device": torch.cuda.get_device_name(0),
-              "gpu": core.query_gpu(), "seed": args.seed,
-              "kernel": kernel_numbers(args.seed), "beds": beds,
+              "gpu": core.query_gpu(), "seed": args.seed, "beds": beds,
               "replay_us_median": statistics.median(
                   b["replay_us"] for b in beds)}
     print(json.dumps(result), flush=True)
