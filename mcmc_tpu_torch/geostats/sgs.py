@@ -181,6 +181,24 @@ def _prepare(xx, grid, variogram, sim_mask, num_points, ktype, half_window,
                 nugget=_f32(variogram["nugget"]))
 
 
+def _transformed_bounds(p, bounds):
+    """The (lower, upper) bounds, each a scalar or an (H, W) array, as
+    normal-score planes; None without bounds."""
+    if bounds is None:
+        return None
+    if len(bounds) != 2:
+        raise ValueError("bounds must be an iterable of length 2 with "
+                         "lower and upper bounds")
+    tb = []
+    for b in bounds:
+        b = (np.full((p["H"], p["W"]), float(b)) if np.isscalar(b)
+             else np.asarray(b, float))
+        if b.shape != p["grid"].shape:
+            raise ValueError("bounds must have same shape as grid")
+        tb.append(np.asarray(p["nst"].transform_np(b)))
+    return tb
+
+
 def _score_grid(p, device):
     """The (H, W) float32 normal scores on ``device``: the data's, NaN
     where no score is known yet."""
@@ -470,30 +488,20 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
     """
     device = resolve_device(device)
     with span("mcmc.sgs"):
+        # the fit and the bounds depend on the data alone; the path on
+        # the seed too
         with span("mcmc.sgs.prepare"):
-            p = _prepare(xx, grid, variogram, sim_mask, num_points, ktype,
-                         half_window, device)
-            H, W, nst = p["H"], p["W"], p["nst"]
-
-            rng = np.random.default_rng(numpy_seed(seed))
-            order = rng.permutation(p["cells"].shape[0])
-            path = p["cells"][order]
-
-            # transformed bounds (lower, upper) grids, if any
-            tb = None
-            if bounds is not None:
-                if len(bounds) != 2:
-                    raise ValueError("bounds must be an iterable of length "
-                                     "2 with lower and upper bounds")
-                tb = []
-                for b in bounds:
-                    b = (np.full((H, W), float(b)) if np.isscalar(b)
-                         else np.asarray(b, float))
-                    if b.shape != p["grid"].shape:
-                        raise ValueError("bounds must have same shape as "
-                                         "grid")
-                    tb.append(np.asarray(nst.transform_np(b)))
-            zg = _score_grid(p, device)
+            with span("mcmc.sgs.prepare.fit"):
+                p = _prepare(xx, grid, variogram, sim_mask, num_points,
+                             ktype, half_window, device)
+                H, W, nst = p["H"], p["W"], p["nst"]
+            with span("mcmc.sgs.prepare.path"):
+                rng = np.random.default_rng(numpy_seed(seed))
+                order = rng.permutation(p["cells"].shape[0])
+                path = p["cells"][order]
+            with span("mcmc.sgs.prepare.bounds"):
+                tb = _transformed_bounds(p, bounds)
+                zg = _score_grid(p, device)
 
         draw = (_CardDraws(rng, path, tb, zg) if device.type == "cuda"
                 else _host_draws(rng, tb))

@@ -32,7 +32,12 @@ SGS_PARENTS = {"mcmc.sgs": None, "mcmc.sgs.prepare": "mcmc.sgs",
                "mcmc.sgs.eager": "mcmc.sgs", "mcmc.sgs.capture": "mcmc.sgs",
                "mcmc.sgs.chunk": "mcmc.sgs", "mcmc.sgs.finish": "mcmc.sgs",
                "mcmc.sgs.replay": "mcmc.sgs.chunk",
-               "mcmc.sgs.wait": "mcmc.sgs.chunk"}
+               "mcmc.sgs.wait": "mcmc.sgs.chunk",
+               "mcmc.sgs.prepare.fit": "mcmc.sgs.prepare",
+               "mcmc.sgs.prepare.path": "mcmc.sgs.prepare",
+               "mcmc.sgs.prepare.bounds": "mcmc.sgs.prepare"}
+PREPARE_PARTS = ("mcmc.sgs.prepare.fit", "mcmc.sgs.prepare.path",
+                 "mcmc.sgs.prepare.bounds")
 SEGMENT_PARENTS = {"mcmc.run_chains": None,
                    "mcmc.run_chains.eager": "mcmc.run_chains",
                    "mcmc.run_chains.capture": "mcmc.run_chains",
@@ -90,6 +95,7 @@ def test_sgs_spans_follow_the_chunk_loop(problem, captured, n):
     full = n // C
     assert (_count(found, "mcmc.sgs"), _count(found, "mcmc.sgs.prepare"),
             _count(found, "mcmc.sgs.finish")) == (1, 1, 1)
+    assert [_count(found, name) for name in PREPARE_PARTS] == [1, 1, 1]
     assert _count(found, "mcmc.sgs.capture") == captured.captures \
         == (1 if full >= 2 else 0)
     chunks = [x for x in found if x[2] == "mcmc.sgs.chunk"]
@@ -105,6 +111,36 @@ def test_sgs_spans_follow_the_chunk_loop(problem, captured, n):
             assert parent in ("mcmc.sgs.chunk", "mcmc.sgs.eager")
         else:
             assert parent == SGS_PARENTS[name], name
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+@pytest.mark.parametrize("part", PREPARE_PARTS)
+def test_prepare_parts_split_each_bed_set_up(problem, captured,
+                                             monkeypatch, part, bounded):
+    """``generate_initial_beds(n_beds=2)``: each ``mcmc.sgs.prepare``
+    holds one of each of its parts, in the order fit, path, bounds, and
+    the part sits in it alone; idle, the part is never entered and the
+    beds are bitwise those of the profiled call."""
+    p = problem
+
+    def beds():
+        return tgeo.generate_initial_beds(
+            p["xx"], p["yy"], p["cond_bed"], EXP,
+            surf=p["surf"] if bounded else None, n_beds=2, device="cpu",
+            seed=11, sim_mask=_mask(p, 2 * C + 3), **KW)
+
+    got, found = _profiled(beds)
+    prepares = [x for x in found if x[2] == "mcmc.sgs.prepare"]
+    assert len(prepares) == 2 and _count(found, part) == 2
+    for prep in prepares:
+        inner = [x[2] for x in found
+                 if prep[0] <= x[0] and x[1] <= prep[1] and x != prep]
+        assert inner == list(PREPARE_PARTS)
+    assert {parent for _, _, name, parent in found if name == part} \
+        == {"mcmc.sgs.prepare"}
+    monkeypatch.setattr(spans, "record_function", _raise)
+    for a, b in zip(beds(), got):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
 @pytest.mark.parametrize("n_steps", STEPS)

@@ -20,8 +20,11 @@ cell up as ``cardbench/run.py`` does and runs its window with
   chunk draws on the device, so it has no ``.wait`` or ``.draw``, and
   ``draw_us`` is the bed's one draw and upload, ``host_draws_a_bed``
   ``.draw`` spans a bed); a bed's fixed cost, each ``mcmc.sgs`` less the
-  ``mcmc.sgs.chunk`` spans in it (``bed_fixed_ms``), and the beds'
-  ``mcmc.sgs`` against the harness's ``cardbench.bed``; a segment's
+  ``mcmc.sgs.chunk`` spans in it (``bed_fixed_ms``), its parts beside it
+  (``bed_fixed_parts_ms``: the ms a bed of each span outside the chunks,
+  ``prepare`` and its ``fit``, ``path`` and ``bounds``, ``eager``,
+  ``capture``, ``draw``, ``finish``), and the beds' ``mcmc.sgs`` against
+  the harness's ``cardbench.bed``; a segment's
   prologue, each ``mcmc.run_chains`` from its start to its first
   ``mcmc.run_chains.replay`` (``segment_prologue_us``), beside
   ``segment_gap_ms.farm``;
@@ -72,6 +75,11 @@ def _inside(spans, outer, name) -> list:
     return [x for x in spans if x[2] == name and s <= x[0] and x[1] <= t]
 
 
+# the spans of a bed's fixed cost, by the name after "mcmc.sgs."
+FIXED_PARTS = ("prepare", "prepare.fit", "prepare.path", "prepare.bounds",
+               "eager", "capture", "draw", "finish")
+
+
 def _mean(values):
     return statistics.fmean(values) if values else None
 
@@ -97,7 +105,15 @@ def span_numbers(spans) -> dict:
                                     _inside(chunks, b, "mcmc.sgs.chunk")))
                  * 1e-6 for b in beds]
         harness = [x for x in spans if x[2] == "cardbench.bed"]
-        out.update(bed_fixed_ms=_mean(fixed),
+
+        def outside_chunks(name):
+            return sum(x[1] - x[0] for x in spans if x[2] == name
+                       and not any(c[0] <= x[0] and x[1] <= c[1]
+                                   for c in chunks))
+
+        parts = {k: outside_chunks("mcmc.sgs." + k) * 1e-6 / len(beds)
+                 for k in FIXED_PARTS}
+        out.update(bed_fixed_ms=_mean(fixed), bed_fixed_parts_ms=parts,
                    chunks_a_bed=len(chunks) / len(beds),
                    host_draws_a_bed=len(by.get("mcmc.sgs.draw", []))
                    / len(beds),
