@@ -45,13 +45,20 @@ line or more each:
    iterations (the system's build alone, and one iteration); then an SGS
    chain with 96 neighbours at the same width (``[cg-k96]``: K = 96, the
    mixture CG kernel against its plain version on its own packed systems
-   and a few steps on the kernels against plain steps); and both window
+   and a few steps on the kernels against plain steps); the K-nearest
+   kernel (``[k-nearest]``, ``ops/csrc/k_nearest.cu``: the selection and
+   the packed system's inputs) against its plain version at the headline,
+   the 10 steps' operands and two stress sets (dropout with blocks on the
+   window's border, fewer candidates than K), all six outputs bitwise,
+   its time a launch beside an empty launch on its grid, the plain
+   version's and its bound by bytes (the K-nearest outputs are also held
+   bitwise in every step of the parity phases); and both window
    kernels bitwise against their plain versions with SB 37 on the odd
    45 x 67 grid and on 45 x 64 (the two writeback paths), the four
    clamped corners among the starts (``[sgs-window-edge]``);
 7. SGS main path: ChainSGS -> MultiChainSampler(chain, 512) ->
    init(seeds=0) -> run(3 segments x 400 iterations) -> diagnostics,
-   checking that each of the four kernels ran once per step, the loss is
+   checking that each of the five kernels ran once per step, the loss is
    finite and falls, acceptance is in (0.02, 0.98), the bed beyond every
    block's reach is untouched and the patched residual equals a full-grid
    recompute; the diagnostics card against CPU as in 5; then a profiled
@@ -250,8 +257,8 @@ proposals with block menu 50-80 in 5 steps; and the SGS chain at the
 reference's production settings (blocks 5-20, 48 neighbours within
 30 km, detrend, 1000-quantile normal-score transform, Matérn nu=1.3,
 10 km).  The second-to-last line is a JSON object describing the seven
-kernels, the per-chain draw kernel, the SRF kernel and the T2 draw
-kernel: each one's
+kernels, the per-chain draw kernel, the SRF kernel, the T2 draw kernel
+and the K-nearest kernel: each one's
 launches on the path that runs it (counts set to 0 just before the path
 and read just after; the draw kernel's over phase 14's SGS list-seeded
 runs, whose draw plan its times are from; the SRF kernel's over phase
@@ -297,7 +304,7 @@ SGS_SEGMENTS = 3
 SGS_SEGMENT = 400
 KERNEL_SOURCES = ("window_kernel", "sgs_window_kernel", "cg_kernel",
                   "lut_kernel", "noise_kernel", "chain_draws", "srf_kernel",
-                  "bounded_draw")
+                  "bounded_draw", "k_nearest")
 NOISE_SEEDS = 10         # phase 8's launches per timed loop
 SPH_PARITY_STEPS = 10
 K96 = 96                 # [cg-k96]: neighbours of the wide SGS chain
@@ -378,6 +385,9 @@ KERNELS = (
     # the port's own kernel: the T2 chunk's draws and their scatter, which
     # the JAX package makes with scipy on the host (no pallas_call) here
     ("bounded_draw", "bounded_draw.cu", "mcmc_tpu/geostats/sgs.py:196"),
+    # the port's own kernel: the SGS step's K-nearest selection, which the
+    # JAX package computes with XLA ops (no pallas_call) at this site
+    ("k_nearest", "k_nearest.cu", "mcmc_tpu/models/chain_sgs.py:400"),
 )
 
 # kernel vs plain version bounds
@@ -807,6 +817,16 @@ def writeback_bytes(write, SB):
     return 4.0 * 2 * int(write.sum()) * 4 * SB * SB + 9 * write.shape[0]
 
 
+def k_nearest_bytes(sel, SB):
+    """Bytes one K-nearest selection must move for the (N, K) ``sel`` it
+    made on (SB, SB) windows: each window's mask (bool) and distances
+    (int64) read, the z values of the cells it takes (z_w and z_u), and
+    its six (N, K) outputs written (int64, bool and four float32)."""
+    N, K = sel.shape
+    return float(N * SB * SB + 2 * 8 * N * SB + 2 * 4 * int(sel.sum())
+                 + N * K * (8 + 1 + 4 * 4))
+
+
 def _time_ops(fn, ops):
     """Mean ms per launch of ``fn(*op)`` over the recorded operands in
     turn, from CUDA events, after one warm-up launch.  The card first
@@ -1212,6 +1232,8 @@ def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
     from mcmc_tpu_torch.models import chain_sgs as sgs
     from mcmc_tpu_torch.ops.cg_kernel import (mix_masked_cg,
                                               mix_masked_cg_reference)
+    from mcmc_tpu_torch.ops.k_nearest_kernel import (KNearest,
+                                                     k_nearest_reference)
     from mcmc_tpu_torch.ops.lut_kernel import (lut_interp,
                                                lut_interp_reference)
     from mcmc_tpu_torch.ops.sgs_window_kernel import (
@@ -1221,11 +1243,11 @@ def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
 
     N, SB, nst = state.fields.shape[0], static.SB, consts.nst
     plain_step = sgs.make_sgs_kernel(static, "eager")
-    err = dict(extract=0.0, writeback=0.0, cg=0.0, lut=0.0)
+    err = dict(extract=0.0, writeback=0.0, cg=0.0, lut=0.0, k_nearest=0.0)
     cg_viol = n_flip = n_lut_diff = 0
     lut_ulp = 0
-    ops = dict(extract=[], writeback=[], cg=[], lut=[])
-    work = dict(extract=[], writeback=[], cg=[], lut=[])  # (bytes, flops)
+    ops = dict(extract=[], writeback=[], cg=[], lut=[], k_nearest=[])
+    work = {name: [] for name in ops}  # (bytes, flops)
     K, H, W = static.K, static.H, static.W
     table_bytes = 4 * nst.inv_table.numel()
     for it in range(n_steps):
@@ -1243,6 +1265,12 @@ def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
         if not torch.equal(win, win_p):
             raise RuntimeError("window extract kernel is not bitwise")
         prep = sgs.prepare(static, consts, win, geo, d.noise, d.drop_u)
+        kn_args = (prep.cond_mask, prep.rd, prep.cd, consts.search_radius,
+                   consts.resolution, prep.z_w, prep.z_u, K)
+        kn_p = k_nearest_reference(*kn_args)
+        if not all(_same_bits(getattr(prep, f), getattr(kn_p, f))
+                   for f in KNearest._fields):
+            raise RuntimeError("K-nearest kernel is not bitwise")
         cg_args = (prep.iaf, prep.jaf, prep.m_sel, prep.rhs_p, prep.eps,
                    static.mix, static.cg_iters)
         w = mix_masked_cg(*cg_args)
@@ -1280,6 +1308,7 @@ def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
         ops["writeback"].append((new_w, sx, sy, sc.write))
         ops["cg"].append(cg_args)
         ops["lut"].append(args)
+        ops["k_nearest"].append(kn_args)
         # bytes each function must move (the LUT's values in and out and
         # its table)
         work["extract"].append((extract_bytes(sx, sy, SB, H, W), 0.0))
@@ -1288,6 +1317,7 @@ def _sgs_kernel_steps(static, consts, state, gen, n_steps, card,
                                    11 + 3 * (static.Mg + static.Me),
                                    4 * (4 * K + 1)))
         work["lut"].append((4.0 * 2 * N * SB * SB + table_bytes, 0.0))
+        work["k_nearest"].append((k_nearest_bytes(prep.sel, SB), 0.0))
         if isinstance(gen, PerChainStreams):
             gen.advance()
     stats = dict(cg_viol=cg_viol, n_flip=n_flip, n_lut_diff=n_lut_diff,
@@ -1332,8 +1362,8 @@ def phase_sgs_kernels_vs_plain(chain, card):
     K = static.K
     flip_rate = n_flip / (SGS_PARITY_STEPS * N)
     n_lut = SGS_PARITY_STEPS * N * SB * SB
-    print(f"[sgs-parity] {SGS_PARITY_STEPS} steps x {N} chains: extract and "
-          f"writeback bitwise | CG max abs err {err['cg']:.3e}, {cg_viol} "
+    print(f"[sgs-parity] {SGS_PARITY_STEPS} steps x {N} chains: extract, "
+          f"writeback and K-nearest bitwise | CG max abs err {err['cg']:.3e}, {cg_viol} "
           f"values beyond rtol/atol {CG_RTOL:g} | LUT {n_lut_diff} of "
           f"{n_lut} values differ, at most {lut_ulp} ulp (bound "
           f"{LUT_ULP_MAX}) | MH flips against a plain step {n_flip}/"
@@ -1370,6 +1400,7 @@ def phase_sgs_kernels_vs_plain(chain, card):
     _lut_launch_and_floor(ops["lut"], out["lut"], card)
     _cg_launch_and_split("sgs-parity", mix_masked_cg, ops["cg"], K, True,
                          out["cg"]["ms"], card)
+    out["k_nearest"] = phase_k_nearest(ops["k_nearest"], card)
     return out
 
 
@@ -1413,6 +1444,83 @@ def _window_launches(N, NP, NS, SB, out, card):
               f"multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor)"
               f" | {r['ms']:.4f} ms = {r['bound_ms'] / r['ms']:.3f} of its "
               f"{r['bound_ms']:.4f} ms bound ({card})", flush=True)
+
+
+KN_STRESS = (            # [k-nearest]: testing.k_nearest_operands' keywords
+    ("dropout, blocks on the edges", dict(keep=0.5, edges=True)),
+    ("fewer candidates than K", dict(radius_cells=1.5, block_max=4)),
+)
+
+
+def phase_k_nearest(recorded, card):
+    """[k-nearest]: the SGS step's K-nearest kernel
+    (``ops/k_nearest_kernel.k_nearest``) against its plain version on the
+    card at the headline (SGS_CHAINS chains, SB 36, K 48): the
+    ``recorded`` operands of [sgs-parity]'s steps, as ``prepare`` made
+    them, then KN_STRESS's at the same shape; all six outputs bitwise
+    (values that differ, bound 0).  Per launch over the recorded steps:
+    the kernel's and the plain version's ms (CUDA events, plain / kernel /
+    kernel / plain), an empty kernel on its grid (one CTA a chain: the
+    launch's floor) and the bound by bytes; each one's device time and
+    device ops a call under the profiler (what a captured step spends on
+    the selection, without the launch gaps); the launch's registers,
+    shared bytes and resident CTAs.  Returns the ``kernels`` row."""
+    import torch
+
+    from mcmc_tpu_torch.ops.k_nearest_kernel import (k_nearest,
+                                                     k_nearest_kernel_info,
+                                                     k_nearest_reference)
+    from mcmc_tpu_torch.testing import k_nearest_operands
+
+    cond_mask, K = recorded[0][0], recorded[0][-1]
+    N, SB, dev = cond_mask.shape[0], cond_mask.shape[1], cond_mask.device
+    stress = [(tag, k_nearest_operands(N, SB, dev, seed=i, **kw) + (K,))
+              for i, (tag, kw) in enumerate(KN_STRESS)]
+    n_diff, taken = {}, {}
+    for tag, ops in [("steps", op) for op in recorded] + stress:
+        got, want = k_nearest(*ops), k_nearest_reference(*ops)
+        n_diff[tag] = n_diff.get(tag, 0) + sum(
+            int((got_t.contiguous().view(torch.uint8)
+                 != want_t.contiguous().view(torch.uint8)).sum())
+            for got_t, want_t in zip(got, want))
+        taken.setdefault(tag, []).append(float(want.sel.sum(1).float()
+                                               .mean()))
+    plain_ms, ms = _pair_times(k_nearest_reference, k_nearest, recorded)
+    floor_ms = _empty_floor(N, len(recorded))
+    # device time and ops a call, as a captured step runs them
+    busy = {}
+    for name, fn in (("plain", k_nearest_reference), ("kernel", k_nearest)):
+        us, _, n_ops = _device_busy(lambda: [fn(*op) for op in recorded])
+        busy[name] = (None if us is None else us / len(recorded),
+                      n_ops / len(recorded))
+    nbytes = float(np.mean([k_nearest_bytes(k_nearest_reference(*op).sel,
+                                            SB) for op in recorded]))
+    bound_ms, bound_by = _bound(nbytes)
+    info = k_nearest_kernel_info(SB)
+    print(f"[k-nearest] {N} chains x {SB}^2 windows, K {K}: kernel vs plain "
+          f"on {len(recorded)} headline steps and "
+          + ", ".join(tag for tag, _ in KN_STRESS)
+          + f": values that differ {n_diff} (bound 0; cells taken a chain "
+          f"{ {t: round(float(np.mean(v)), 2) for t, v in taken.items()} }) "
+          f"| per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, an "
+          f"empty kernel on its {N} CTAs {floor_ms:.4f} ms: the kernel is "
+          f"{ms / floor_ms:.2f}x the floor | device time a call (profiled): "
+          + ", ".join(f"{k} " + ("not measured" if v[0] is None
+                                 else f"{v[0]:.2f} us") + f" in {v[1]:.1f} ops"
+                      for k, v in busy.items())
+          + f" | bound {bound_ms:.2e} ms by "
+          f"{bound_by} ({nbytes:,.0f} B) = {bound_ms / ms:.3f} of the "
+          f"kernel's time | launch: {info['threads']} threads a CTA, "
+          f"{info['dynamic_shared_bytes']} + {info['static_shared_bytes']} "
+          f"shared bytes, {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes, "
+          f"{info['resident_ctas_per_sm']} resident CTAs an SM ({card}; "
+          f"CUDA events, {len(recorded)} launches x 2 each)", flush=True)
+    if any(n_diff.values()):
+        raise RuntimeError(f"the K-nearest kernel is not bitwise its plain "
+                           f"version: {n_diff}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
 
 
 def phase_sgs_window_edges(card):
@@ -1553,13 +1661,15 @@ def phase_sgs_main_path(chain, p, card):
 
     from mcmc_tpu_torch import MultiChainSampler
     from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.k_nearest_kernel import k_nearest
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
     from mcmc_tpu_torch.ops.physics import (masked_gaussian_loss,
                                             mass_conservation_residual)
     from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
                                                       window_writeback)
 
-    kernels = (window_extract, mix_masked_cg, lut_interp, window_writeback)
+    kernels = (window_extract, k_nearest, mix_masked_cg, lut_interp,
+               window_writeback)
     torch.cuda.reset_peak_memory_stats()
     sampler = MultiChainSampler(chain, SGS_CHAINS, device=DEVICE)
     static, consts = sampler.static, sampler.consts
@@ -1633,7 +1743,7 @@ def phase_sgs_main_path(chain, p, card):
     if tuple(loss.shape) != (SGS_CHAINS, n_iter):
         raise RuntimeError(f"loss trace shape {loss.shape}")
     busy_share(sampler, states, card, elapsed / steps * 1e6, top=10,
-               watch=("lut_kernel",))
+               watch=("lut_kernel", "k_nearest_kernel"))
     return launches
 
 
@@ -2071,6 +2181,7 @@ def phase_entry_point(p, card):
 
     from mcmc_tpu_torch.drivers import large_scale_chain_farm
     from mcmc_tpu_torch.ops.cg_kernel import masked_cg, mix_masked_cg
+    from mcmc_tpu_torch.ops.k_nearest_kernel import k_nearest
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
     from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
                                                       window_writeback)
@@ -2084,7 +2195,8 @@ def phase_entry_point(p, card):
         def cli_run(n_iter, out, *extra):
             return _cli_run(tmp, _sgs_config(n_iter, out), *extra)
 
-        kernels = (window_extract, masked_cg, lut_interp, window_writeback)
+        kernels = (window_extract, k_nearest, masked_cg, lut_interp,
+                   window_writeback)
         for k in kernels + (mix_masked_cg,):
             k.launches = 0
         t0 = time.perf_counter()
@@ -2584,6 +2696,7 @@ def phase_entry_seed_list(p, card):
     draw-kernel launch a step."""
     from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
     from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.k_nearest_kernel import k_nearest
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
 
     first, total = ENTRY_LIST_ITERS
@@ -2591,7 +2704,7 @@ def phase_entry_seed_list(p, card):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
         tmp = Path(tmp)
         _write_dataset(p, tmp / "dataset.npz")
-        kernels = (chain_draws, mix_masked_cg, lut_interp)
+        kernels = (chain_draws, k_nearest, mix_masked_cg, lut_interp)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -2640,6 +2753,7 @@ def _run_kernels(family):
     each once a step."""
     from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
     from mcmc_tpu_torch.ops.chain_draws import chain_draws
+    from mcmc_tpu_torch.ops.k_nearest_kernel import k_nearest
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
     from mcmc_tpu_torch.ops.noise_kernel import batched_normal_keyed
     from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
@@ -2648,8 +2762,8 @@ def _run_kernels(family):
 
     if family == "crf":
         return (fused_window_update, batched_normal_keyed, chain_draws)
-    return (window_extract, window_writeback, mix_masked_cg, lut_interp,
-            chain_draws)
+    return (window_extract, window_writeback, k_nearest, mix_masked_cg,
+            lut_interp, chain_draws)
 
 
 # (farm trace, run dict key) pairs a single-chain run returns
@@ -2854,6 +2968,8 @@ def _sgs_one_chain_kernels(chain, card):
                                               mix_masked_cg_reference)
     from mcmc_tpu_torch.ops.chain_draws import (cached_plan, chain_draws,
                                                 chain_draws_reference)
+    from mcmc_tpu_torch.ops.k_nearest_kernel import (k_nearest,
+                                                     k_nearest_reference)
     from mcmc_tpu_torch.ops.lut_kernel import (lut_interp,
                                                lut_interp_reference,
                                                lut_kernel_info)
@@ -2879,8 +2995,9 @@ def _sgs_one_chain_kernels(chain, card):
           f"kernel {n_diff} values not bitwise equal (bound 0) | CG max abs "
           f"err {err['cg']:.3e}, {stats['cg_viol']} values beyond rtol/atol "
           f"{CG_RTOL:g} | LUT {stats['n_lut_diff']} values differ, at most "
-          f"{stats['lut_ulp']} ulp (bound {LUT_ULP_MAX}) | MH flips against "
-          f"a plain step {stats['n_flip']}/{RUN_KERNEL_STEPS}", flush=True)
+          f"{stats['lut_ulp']} ulp (bound {LUT_ULP_MAX}) | K-nearest bitwise "
+          f"| MH flips against a plain step {stats['n_flip']}/"
+          f"{RUN_KERNEL_STEPS}", flush=True)
     if (n_diff or stats["cg_viol"] or stats["lut_ulp"] > LUT_ULP_MAX
             or stats["n_flip"] > FLIP_RATE_MAX * RUN_KERNEL_STEPS):
         raise RuntimeError("an SGS kernel disagrees with its plain version "
@@ -2901,6 +3018,7 @@ def _sgs_one_chain_kernels(chain, card):
                           -(-1 // cpb)),
         "lut_interp": (lut_interp_reference, lut_interp, ops["lut"],
                        lut_kernel_info(ops["lut"][0][0])["ctas"]),
+        "k_nearest": (k_nearest_reference, k_nearest, ops["k_nearest"], 1),
         "chain_draws": (lambda k, t: chain_draws_reference(k, t, plan),
                         lambda k, t: chain_draws(k, t, plan),
                         [(streams.keys, t) for t in steps],
@@ -3942,11 +4060,13 @@ def _dist_kernels(family):
         return (fused_window_update, batched_normal, batched_normal_keyed,
                 chain_draws)
     from mcmc_tpu_torch.ops.cg_kernel import mix_masked_cg
+    from mcmc_tpu_torch.ops.k_nearest_kernel import k_nearest
     from mcmc_tpu_torch.ops.lut_kernel import lut_interp
     from mcmc_tpu_torch.ops.sgs_window_kernel import (window_extract,
                                                       window_writeback)
 
-    return (window_extract, mix_masked_cg, lut_interp, window_writeback)
+    return (window_extract, k_nearest, mix_masked_cg, lut_interp,
+            window_writeback)
 
 
 def _bit_sums(fields):
@@ -4360,7 +4480,7 @@ def _example_gates(name, r, launches):
     crf = {k: launches.get(k, 0) for k in ("fused_window_update",
                                            "batched_normal")}
     sgs = {k: launches.get(k, 0) for k in ("window_extract",
-                                           "window_writeback",
+                                           "window_writeback", "k_nearest",
                                            "mix_masked_cg", "lut_interp")}
     tag = name[:2]
     if tag == "01":
@@ -4491,19 +4611,21 @@ GRAPH_FARMS = (
     ("crf-list", "crf", N_CHAINS, "list",
      ("fused_window_update", "batched_normal_keyed", "chain_draws")),
     ("sgs-int", "sgs", SGS_CHAINS, "int",
-     ("window_extract", "window_writeback", "mix_masked_cg", "lut_interp")),
+     ("window_extract", "window_writeback", "k_nearest", "mix_masked_cg",
+      "lut_interp")),
     ("sgs-list", "sgs", SGS_CHAINS, "list",
-     ("window_extract", "window_writeback", "mix_masked_cg", "lut_interp",
-      "chain_draws")),
+     ("window_extract", "window_writeback", "k_nearest", "mix_masked_cg",
+      "lut_interp", "chain_draws")),
     ("sph-int", "sph", SGS_CHAINS, "int",
-     ("window_extract", "window_writeback", "masked_cg", "lut_interp")),
+     ("window_extract", "window_writeback", "k_nearest", "masked_cg",
+      "lut_interp")),
     ("srf-int", "srf", N_CHAINS, "int",
      ("fused_window_update", "srf_harmonics")),
 )
 GRAPH_RUN_KERNELS = {
     "crf": ("fused_window_update", "batched_normal_keyed", "chain_draws"),
-    "sgs": ("window_extract", "window_writeback", "mix_masked_cg",
-            "lut_interp", "chain_draws")}
+    "sgs": ("window_extract", "window_writeback", "k_nearest",
+            "mix_masked_cg", "lut_interp", "chain_draws")}
 
 
 def _launch_counts():
@@ -4955,7 +5077,8 @@ def main():
     print(f"[diag] phase {time.perf_counter() - t0:.1f} s", flush=True)
     for kernel, key in (("window_extract", "extract"),
                         ("window_writeback", "writeback"),
-                        ("mix_masked_cg", "cg"), ("lut_interp", "lut")):
+                        ("mix_masked_cg", "cg"), ("lut_interp", "lut"),
+                        ("k_nearest", "k_nearest")):
         rows[kernel] = sgs_parity[key]
         launches[kernel] = sgs_launches[kernel]
     rows["batched_normal"] = phase_noise_vs_plain(chain, card)

@@ -22,8 +22,9 @@ One batched step runs, in order (``make_sgs_kernel``):
 1. ``window_start``: block extent and clamped window start (floor
    division: ``(2*cx - bsx)//2`` is negative near the top-left edge);
 2. window extract (CUDA kernel, ``ops/sgs_window_kernel.py``);
-3. ``prepare``: roles, the unconditional draw, the K-nearest selection in
-   its gather form, the packed right-hand side and coordinates;
+3. ``prepare``: roles, the unconditional draw, then the K-nearest
+   selection with the packed right-hand side and coordinates (one CUDA
+   kernel, ``ops/k_nearest_kernel.py``);
 4. the packed solve (CUDA kernels, ``ops/cg_kernel.py``): the
    mixture-system CG, or, for a covariance with no mixture fit (a
    spherical variogram), the stamp gather ``cov_stamp[di, dj]`` (a torch
@@ -62,6 +63,7 @@ from ..ops.cg_kernel import (masked_cg, masked_cg_reference, mix_masked_cg,
 from ..ops.chain_draws import cached_plan, draw_plan, entry
 from ..ops.covariance import (CovarianceSpec, covariance_norm,
                               fit_cov_mixture, make_rotation_matrix)
+from ..ops.k_nearest_kernel import k_nearest, k_nearest_ops
 from ..ops.lut_kernel import lut_interp, lut_interp_reference
 from ..ops.physics import (masked_gaussian_loss, masked_sq_sum,
                            mass_conservation_residual)
@@ -355,41 +357,15 @@ def k_nearest_packed(candidate, rd, cd, K: int):
     """The K candidate cells nearest the block, packed by window index.
 
     ``candidate`` (N, SB, SB) bool; ``rd``, ``cd`` (N, SB) integer row and
-    column distances to the block.  Squared distances are integers, so the
-    K-th smallest one, T, is exact (``torch.kthvalue``; the JAX package
-    finds the same T by integer bisection); cells strictly nearer than T
-    are taken, then ties at T by lowest index.  Returns ``idx`` (N, K)
-    int64 indices into the raveled window, ascending, and ``sel`` (N, K)
-    bool; when fewer than K candidates exist the tail of ``sel`` is False
-    and ``idx`` there is SB²-1, masked downstream.  The same set in the
-    same order as the JAX package's ``k_nearest_packed``."""
+    column distances to the block.  Returns ``idx`` (N, K) int64 indices
+    into the raveled window, ascending, and ``sel`` (N, K) bool; when fewer
+    than K candidates exist the tail of ``sel`` is False and ``idx`` there
+    is SB²-1, masked downstream.  The same set in the same order as the
+    JAX package's ``k_nearest_packed`` (``ops/k_nearest_kernel.py``'s
+    ``k_nearest_ops``; the step runs the selection through its
+    ``k_nearest``)."""
     ops = k_nearest_ops(candidate, rd, cd, K)
     return ops["idx"], ops["sel"]
-
-
-def k_nearest_ops(candidate, rd, cd, K: int) -> dict:
-    """``k_nearest_packed``'s results by op, in its order: ``kthvalue``
-    (T), the ``tie cumsum`` and ``rank cumsum`` scans, ``searchsorted``,
-    then the packed ``idx`` and ``sel``; ``prepare`` keeps them for
-    ``testing.sgs_step_stages``."""
-    N, SB = rd.shape
-    big = 2 * SB * SB  # > any real squared distance
-    d2 = (rd.long()[:, :, None] ** 2 + cd.long()[:, None, :] ** 2)
-    d2r = torch.where(candidate, d2, big).reshape(N, SB * SB)
-    cand = candidate.reshape(N, SB * SB)
-    T = torch.kthvalue(d2r, K, dim=1).values[:, None]
-    strict = d2r < T
-    ties = cand & (d2r == T)
-    n_strict = strict.sum(dim=1, keepdim=True)
-    tie_scan = torch.cumsum(ties.long(), dim=1)
-    valid = strict | (ties & (tie_scan <= K - n_strict))
-    rank = torch.cumsum(valid.long(), dim=1)          # inclusive
-    js = torch.arange(K, device=rd.device).expand(N, K).contiguous()
-    # index of the (j+1)-th valid cell = #{i : rank_i <= j}
-    pos = torch.searchsorted(rank, js, right=True)
-    return {"kthvalue": T, "tie cumsum": tie_scan, "rank cumsum": rank,
-            "searchsorted": pos, "idx": torch.clamp(pos, max=SB * SB - 1),
-            "sel": js < rank[:, -1:]}
 
 
 @dataclasses.dataclass
@@ -448,13 +424,18 @@ class Prepared:
     iaf: torch.Tensor         # (N, K) packed rows, float32
     jaf: torch.Tensor         # (N, K) packed cols, float32
     eps: float                # diagonal jitter
-    knn: dict                 # the K-nearest selection by op (k_nearest_ops)
+    cond_mask: torch.Tensor   # (N, SB, SB) cells that may condition
+    rd: torch.Tensor          # (N, SB) int64 row distance to the block
+    cd: torch.Tensor          # (N, SB) int64 column distance to the block
 
 
 def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
-            noise, drop_u=None) -> Prepared:
+            noise, drop_u=None, impl: str = "auto") -> Prepared:
     """Roles, the unconditional draw and the packed conditioning system of
-    every chain's window (the JAX package's ``prepare``)."""
+    every chain's window (the JAX package's ``prepare``).  The K-nearest
+    selection and the packed system's inputs are one ``k_nearest`` call:
+    the CUDA kernel for CUDA tensors, the plain version for CPU ones or
+    under ``impl="eager"``."""
     SB, NE, K = static.SB, static.NE, static.K
     N = windows.shape[0]
     ar = torch.arange(SB, device=windows.device)
@@ -484,22 +465,14 @@ def prepare(static: SGSStatic, consts: SGSConsts, windows, geo: BlockGeometry,
     z_big = torch.fft.irfft2(Z * consts.embed_sqrt, s=(NE, NE))
     z_u = z_big[:, :SB, :SB] + consts.mean_z
 
-    rdf, cdf = rd.to(torch.float32), cd.to(torch.float32)
-    euclid = torch.sqrt(rdf[:, :, None] * rdf[:, :, None]
-                        + cdf[:, None, :] * cdf[:, None, :]) * consts.resolution
-    candidate = cond_mask & (euclid <= consts.search_radius)
-    knn = k_nearest_ops(candidate, rd, cd, K)
-    idx, sel = knn["idx"], knn["sel"]
-    dz = torch.where(cond_mask, z_w - z_u, 0.0).reshape(N, SB * SB)
-    rhs_p = torch.where(sel, torch.gather(dz, 1, idx), 0.0)
-    ia = torch.div(idx, SB, rounding_mode="floor")
-    ja = idx - SB * ia
+    knn = k_nearest(cond_mask, rd, cd, consts.search_radius,
+                    consts.resolution, z_w, z_u, K, impl)
     eps = _f32(np.float32(1e-3) * np.float32(max(consts.sill, 1.0)))
     return Prepared(windows=windows, in_block=in_block, sim_mask=sim_mask,
                     data_w=data_w, ring_dist=ring_dist, z_w=z_w, z_u=z_u,
-                    idx=idx, sel=sel, m_sel=sel.to(torch.float32),
-                    rhs_p=rhs_p, iaf=ia.to(torch.float32),
-                    jaf=ja.to(torch.float32), eps=eps, knn=knn)
+                    idx=knn.idx, sel=knn.sel, m_sel=knn.m_sel,
+                    rhs_p=knn.rhs_p, iaf=knn.iaf, jaf=knn.jaf, eps=eps,
+                    cond_mask=cond_mask, rd=rd, cd=cd)
 
 
 def stamp_sigma(static: SGSStatic, consts: SGSConsts, prep: Prepared):
@@ -667,7 +640,7 @@ def make_sgs_kernel(static: SGSStatic, impl: str = "auto"):
         geo = window_start(static, cx, cy, bsx, bsy)
         sx, sy = geo.sx32, geo.sy32
         windows = extract(consts.stacked, state.fields, sx, sy, static.SB)
-        prep = prepare(static, consts, windows, geo, noise, drop_u)
+        prep = prepare(static, consts, windows, geo, noise, drop_u, impl)
         w_p = solve(static, consts, prep, impl)
         z_new_w, z_cache_w = draw_z(static, consts, prep, w_p, noise)
         inv_draw = None

@@ -4,8 +4,9 @@ neighbour search, the normal-score transform, and the kernels with their
 plain versions: the CRF fused window update and Philox noise, the SGS
 window extract/writeback, the two packed CG solves (mixture system, given
 Sigma) and the LUT; and the port's own kernels: the seed-listed farms'
-per-chain draws, the gstools-SRF proposal's harmonic sum and the T2
-chunk's bounded draws (``bounded_draw_kernel``)."""
+per-chain draws, the gstools-SRF proposal's harmonic sum, the T2
+chunk's bounded draws (``bounded_draw_kernel``) and the SGS step's
+K-nearest selection (``k_nearest_kernel``)."""
 
 from .covariance import (CovarianceSpec, covariance_norm, make_matern_table,
                          make_rho, make_rotation_matrix, make_sigma)

@@ -69,6 +69,49 @@ def sgs_window_operands(H, W, SB, n, device, seed=1, NP=10, NS=4):
     return cons, fields, sx, sy, new_w, write
 
 
+def k_nearest_operands(n, SB, device, seed=0, keep=1.0, edges=False,
+                       radius_cells=None, resolution=500.0, block=True,
+                       block_max=None):
+    """Operands of ``ops/k_nearest_kernel.k_nearest`` for ``n`` chains'
+    (SB, SB) windows, made as ``chain_sgs.prepare`` makes them, from
+    numpy's generator ``seed``: each chain's block of 1 .. ``block_max``
+    (default SB // 2) rows and columns anywhere in its window or
+    (``edges``) against the window's border, on a domain edge or corner
+    (the nine placements in turn); the block's cells do not condition, but
+    for its 5 % of data cells (none without a ``block``); each other cell
+    is kept with probability ``keep`` (dropout).  Squared distances are
+    integers, so a dense window ties many cells at the K-th one, around
+    the block.  The radius is ``radius_cells`` cells (None: the window's
+    diagonal, every kept cell a candidate); z planes of standard normals.
+    Returns (cond_mask, rd, cd, radius, resolution, z_w, z_u)."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(SB)
+    cond = np.empty((n, SB, SB), bool)
+    rd = np.empty((n, SB), np.int64)
+    cd = np.empty((n, SB), np.int64)
+    for i in range(n):
+        h, w = rng.integers(1, (block_max or max(SB // 2, 1)) + 1, 2)
+        if edges:
+            a0 = (0, (SB - h) // 2, SB - h)[i % 3]
+            b0 = (0, (SB - w) // 2, SB - w)[i // 3 % 3]
+        else:
+            a0, b0 = rng.integers(0, SB - h + 1), rng.integers(0, SB - w + 1)
+        rd[i] = np.maximum(np.maximum(a0 - rows, rows - (a0 + h - 1)), 0)
+        cd[i] = np.maximum(np.maximum(b0 - rows, rows - (b0 + w - 1)), 0)
+        in_block = (rd[i][:, None] == 0) & (cd[i][None, :] == 0)
+        sim = in_block & (rng.random((SB, SB)) >= 0.05) & block
+        cond[i] = ~sim & (rng.random((SB, SB)) < keep)
+    radius = (np.hypot(SB, SB) if radius_cells is None
+              else radius_cells) * resolution
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    z = rng.standard_normal((2, n, SB, SB)).astype(np.float32)
+    return (dev(cond), dev(rd), dev(cd), float(np.float32(radius)),
+            float(np.float32(resolution)), dev(z[0]), dev(z[1]))
+
+
 def _srf_products(kv, ny, nx, res):
     """The SRF phase's two float32 products, each rounded as the JAX
     package rounds them: a = fl(x_k kx_m) (n, nx, M) and b = fl(y_i
@@ -136,14 +179,18 @@ def sgs_step_stages(static, consts, state, d, impl: str = "auto") -> dict:
     """The intermediates of one SGS step's MH update on the draws ``d``
     (``chain_sgs.SGSDraws``), by name, in the step's order, without
     writing the state: the window extract; in ``prepare``, the
-    unconditional draw's C2R FFT and each op of the K-nearest selection
-    (``kthvalue``, the tie and rank ``cumsum`` scans, ``searchsorted``)
-    and the CG's operands; the CG; in ``draw_z``, the adjustment's R2C
-    and C2R FFTs; the LUT; in ``commit_core``, the residual, both masked
-    square sums and the decision.  ``chip_smoke.py``'s [independence]
-    compares chain 0's in a batch of N and a batch of 1 to find the
-    first op whose result depends on the batch."""
+    unconditional draw's C2R FFT and each op of the K-nearest selection's
+    plain version (``kthvalue``, the tie and rank ``cumsum`` scans,
+    ``searchsorted``), run on the selection's operands beside the step's
+    own ``k_nearest`` (the kernel for CUDA tensors), whose six outputs
+    must equal them bit for bit, and the CG's operands; the CG; in
+    ``draw_z``, the adjustment's R2C and C2R FFTs; the LUT; in
+    ``commit_core``, the residual, both masked square sums and the
+    decision.  ``chip_smoke.py``'s [independence] compares chain 0's in a
+    batch of N and a batch of 1 to find the first op whose result depends
+    on the batch."""
     from .models import chain_sgs as sgs
+    from .ops.k_nearest_kernel import KNearest, k_nearest_stages
     from .ops.physics import masked_sq_sum
 
     kernel = impl != "eager"
@@ -154,10 +201,17 @@ def sgs_step_stages(static, consts, state, d, impl: str = "auto") -> dict:
     windows = extract(consts.stacked, state.fields, geo.sx32, geo.sy32,
                       static.SB)
     out["window extract"] = windows
-    prep = sgs.prepare(static, consts, windows, geo, d.noise, d.drop_u)
+    prep = sgs.prepare(static, consts, windows, geo, d.noise, d.drop_u, impl)
     out["C2R FFT of the unconditional draw"] = prep.z_u
+    plain = k_nearest_stages(prep.cond_mask, prep.rd, prep.cd,
+                             consts.search_radius, consts.resolution,
+                             prep.z_w, prep.z_u, static.K)
     for name in ("kthvalue", "tie cumsum", "rank cumsum", "searchsorted"):
-        out[name] = prep.knn[name]
+        out[name] = plain[name]
+    for name in KNearest._fields:
+        if not same_bits(getattr(prep, name), plain[name]):
+            raise RuntimeError(f"the step's K-nearest {name} is not its "
+                               f"plain version's, bit for bit")
     out["packed idx, sel"] = torch.cat([prep.idx, prep.sel.long()], dim=1)
     out["CG operands"] = torch.stack([prep.rhs_p, prep.iaf, prep.jaf,
                                       prep.m_sel], dim=1)
@@ -186,6 +240,14 @@ def sgs_step_stages(static, consts, state, d, impl: str = "auto") -> dict:
                                          sc.accept.to(torch.float32),
                                          sc.write.to(torch.float32)], dim=1)
     return out
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors equal in shape, type and every byte (NaN payloads
+    included)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
 
 
 def first_batch_dependence(many: dict, one: dict):

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 CRF window kernel and Philox noise (and its keyed entry), the SGS window
 extract and writeback, the two packed CG solves (mixture system, given
-Sigma), the inverse LUT, the per-chain draw kernel of seed-listed farms
-and the SRF harmonic sum; the single-chain ``run`` on the kernels, and
+Sigma), the inverse LUT, the K-nearest selection, the per-chain draw
+kernel of seed-listed farms and the SRF harmonic sum; the single-chain ``run`` on the kernels, and
 ``geostats.sgs`` on the card against the CPU, its captured chunks and
 ``krige``'s against the eager loop, and the T2 chunk's draw kernel.
 
@@ -28,6 +28,11 @@ from mcmc_tpu_torch.ops.cg_kernel import (cg_kernel_info, kernel_max_k,
                                           mix_masked_cg,
                                           mix_masked_cg_reference)
 from mcmc_tpu_torch.ops.covariance import eval_mixture_static
+from mcmc_tpu_torch.ops.k_nearest_kernel import (KNearest, k_nearest,
+                                                 k_nearest_kernel_info,
+                                                 k_nearest_reference,
+                                                 k_nearest_stages,
+                                                 kernel_max_sb)
 from mcmc_tpu_torch.ops.lut_kernel import lut_interp, lut_interp_reference
 from mcmc_tpu_torch.ops.chain_draws import (MAX_ENTRIES, SLOTS, DrawEntry,
                                             DrawPlan, chain_draws,
@@ -47,6 +52,7 @@ from mcmc_tpu_torch.ops.window_kernel import (fused_window_update,
                                               fused_window_update_reference,
                                               window_kernel_info)
 from mcmc_tpu_torch.testing import (edge_window_operands,
+                                    k_nearest_operands, same_bits,
                                     sgs_window_operands)
 from mcmc_tpu_torch.utils.rng import PerChainStreams, make_generator
 from tests.torch_helpers import (assert_delta_close, block_losses,
@@ -336,23 +342,95 @@ def test_lut_kernel_bitwise(cuda_device):
     assert torch.equal(got[ok], want[ok])
 
 
+# (chains, SB, K, k_nearest_operands' keywords): the farm's headline at
+# 512 chains and at one (ChainSGS.run, one CTA); dropout with blocks on
+# the window's border (the domain's edges and corners); fewer candidates
+# than K; K > 64; K = SB² with and without a block; K = 1 and an odd SB;
+# a window whose histogram needs the opt-in shared memory; the largest SB
+# the kernel takes ("max")
+K_NEAREST_CASES = [
+    (512, 36, 48, {}),
+    (1, 36, 48, {}),
+    (64, 36, 48, dict(keep=0.5, edges=True)),
+    (64, 36, 48, dict(radius_cells=1.5, block_max=4)),
+    (64, 36, 48, dict(radius_cells=4.0, keep=0.7, edges=True)),
+    (64, 24, 100, dict(keep=0.7, edges=True)),
+    (32, 37, 1, dict(edges=True)),
+    (16, 12, 144, {}),
+    (16, 12, 144, dict(block=False)),
+    (8, 96, 500, dict(keep=0.9, edges=True)),
+    (4, "max", 48, dict(edges=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,SB,K,kw", K_NEAREST_CASES)
+def test_k_nearest_kernel_bitwise(cuda_device, n, SB, K, kw):
+    """The K-nearest kernel against its plain version, bitwise on all six
+    outputs, one launch; a dense window leaves ties at the K-th distance
+    out (the tie-break by window index is exercised)."""
+    SB = kernel_max_sb(cuda_device) if SB == "max" else SB
+    ops = k_nearest_operands(n, SB, cuda_device, seed=SB * 1000 + K, **kw)
+    before = k_nearest.launches
+    got = k_nearest(*ops, K)
+    torch.cuda.synchronize()
+    assert k_nearest.launches == before + 1
+    want = k_nearest_reference(*ops, K)
+    for name in KNearest._fields:
+        assert same_bits(getattr(got, name), getattr(want, name)), name
+    st = k_nearest_stages(*ops, K)
+    n_cand = st["candidate"].flatten(1).sum(1)
+    if n >= 64 and not kw:
+        d2 = ops[1][:, :, None] ** 2 + ops[2][:, None, :] ** 2
+        at_t = st["candidate"] & (d2 == st["kthvalue"][:, :, None])
+        strict = st["candidate"] & (d2 < st["kthvalue"][:, :, None])
+        assert (at_t.flatten(1).sum(1) > K - strict.flatten(1).sum(1)).any()
+    if kw.get("radius_cells") == 1.5:
+        assert (n_cand < K).all()
+
+
+@pytest.mark.cuda
+def test_k_nearest_eager_and_refusal(cuda_device):
+    """``impl="eager"`` on CUDA tensors runs the plain version (no launch);
+    an SB above the kernel's shared-memory limit is refused, naming it,
+    and runs under ``impl="eager"``; the launch at the headline fits one
+    wave."""
+    ops = k_nearest_operands(8, 36, cuda_device)
+    before = k_nearest.launches
+    got = k_nearest(*ops, 48, "eager")
+    assert k_nearest.launches == before
+    want = k_nearest_reference(*ops, 48)
+    for name in KNearest._fields:
+        assert same_bits(getattr(got, name), getattr(want, name)), name
+    top = kernel_max_sb(cuda_device)
+    assert 36 <= top < 256
+    big = k_nearest_operands(1, top + 1, cuda_device)
+    with pytest.raises(ValueError, match=f"SB <= {top} "):
+        k_nearest(*big, 48)
+    assert k_nearest(*big, 48, "eager").sel.all()
+    info = k_nearest_kernel_info(36, cuda_device)
+    assert info["local_bytes"] == 0
+    assert info["resident_ctas_per_sm"] * 132 >= 512
+
+
 @pytest.mark.cuda
 def test_sgs_sampler_launches_each_kernel_once_per_step(cuda_device):
-    """impl='fused' runs all four SGS kernels once per step; the eager
-    sampler, fed the same seed, agrees on the MH decisions until a
-    borderline one flips."""
+    """impl='fused' runs all five SGS kernels once per step; the eager
+    sampler, fed the same seed, launches none and agrees on the MH
+    decisions until a borderline one flips."""
     chain = small_sgs_chain(small_problem())
     fused = MultiChainSampler(chain, N, device=cuda_device, impl="fused")
-    ops = (window_extract, window_writeback, mix_masked_cg, lut_interp)
+    ops = (window_extract, window_writeback, mix_masked_cg, lut_interp,
+           k_nearest)
     for op in ops:
         op.launches = 0
     s_f, tr_f = fused.run(fused.init(seeds=3), 41, segment_size=20,
                           progress=False)
-    assert [op.launches for op in ops] == [40] * 4
+    assert [op.launches for op in ops] == [40] * 5
     eager = MultiChainSampler(chain, N, device=cuda_device, impl="eager")
     s_e, tr_e = eager.run(eager.init(seeds=3), 41, segment_size=20,
                           progress=False)
-    assert [op.launches for op in ops] == [40] * 4
+    assert [op.launches for op in ops] == [40] * 5
     assert np.isfinite(tr_f["loss"]).all()
     assert tr_f["loss"][:, -1].mean() < tr_f["loss"][:, 0].mean()
     agree = (tr_f["step"] == tr_e["step"]).mean()
@@ -1006,7 +1084,8 @@ def test_captured_loop_is_the_eager_loop(cuda_device, family, seeding):
     if seeding == "int":
         rng_g.set_state(rng_e.get_state())
     kernels = ((fused_window_update,) if family == "crf"
-               else (window_extract, window_writeback, lut_interp))
+               else (window_extract, window_writeback, lut_interp,
+                     k_nearest))
     for k in kernels:
         k.launches = 0
     steps = (ps.WARM_STEPS + ps.CHUNK_STEPS + 7, 2 * ps.CHUNK_STEPS)

@@ -55,9 +55,9 @@ KERNELS = {
     ("crf", "list"): ("fused_window_update", "batched_normal_keyed",
                       "chain_draws"),
     ("sgs", "int"): ("window_extract", "window_writeback", "mix_masked_cg",
-                     "lut_interp"),
+                     "lut_interp", "k_nearest"),
     ("sgs", "list"): ("window_extract", "window_writeback", "mix_masked_cg",
-                      "lut_interp", "chain_draws"),
+                      "lut_interp", "chain_draws", "k_nearest"),
 }
 
 
