@@ -4727,7 +4727,7 @@ def _graph_nodes(static, consts, states, rng, tag):
                           capture=functools.partial(ps.capture_graph,
                                                     keep_graph=True))
     seg = graphs.graph
-    total, kinds, records = _dot_nodes(seg.graph)
+    total, kinds, records = _dot_nodes(seg.graph.graph)
     graphs.drop()
     in_graph = {c.__name__: 0 for c in COUNTED}
     for kind, symbol in records:

@@ -16,38 +16,37 @@ solve and scatter are a fixed set of batched torch ops on ``device`` (the
 card unless the caller asks for the CPU), in float32 as the JAX package
 computes them; the normal-score transforms (``transform_np`` /
 ``inverse_np``) stay on the host in numpy, as the JAX package's do.  The
-draws follow the grid.  On a CPU grid they stay on the host, as the JAX
-package's do: a chunk's (est, var) go to the host and scipy draws there
-(``_host_draws``).  On the card the bed's uniforms (bounded) or standard
-normals (unbounded), one a cell, are drawn on the host at once after the
-path's permutation, the same stream the chunk-by-chunk calls take, and
-uploaded with the transformed bounds (``_CardDraws``); each chunk then
-draws in float64 and scatters its scores on the card
-(``ops/bounded_draw_kernel.py``), so no chunk waits for the host.
+draws follow the grid (``_bed_draws``).  On a CPU grid they stay on the
+host, as the JAX package's do: a chunk's (est, var) go to the host and
+scipy draws there (``_host_draws``, one ``mcmc.sgs.draw`` a chunk).  On
+the card the bed's uniforms (bounded) or standard normals (unbounded),
+one a cell, are drawn on the host at once after the path's permutation,
+the same stream the chunk-by-chunk calls take, and uploaded with the
+transformed bounds (``_CardDraws``); each chunk then draws in float64 and
+scatters its scores on the card (``ops/bounded_draw_kernel.py``), so no
+chunk waits for the host.
 
-How the chunks reach the device: on the card, as the JAX package's
-jitted ``batch_cell`` and ``scatter`` do, one CUDA graph is captured a
-call and replayed for every full chunk but the first
-(``_sgs_loop_captured``, ``_krige_loop_captured``); the first chunk runs
-eagerly (it warms the sort's and the solver's workspaces), and so do the
-last ``n mod chunk`` cells.  The eager loops (``_sgs_loop_eager``,
-``_krige_loop_eager``) launch every op from Python: they are the plain
-versions, which CPU grids run, and the captured loops give their bits.
-With the card's draws a replayed chunk is the copy of its cells and the
-replay: it solves, draws and scatters, and the host queues the next
-without waiting; the one sync is ``.finish``'s grid to the host.  With
-host draws (a CPU grid, or a ``draw`` callable other than ``sgs``'s own)
-the chunk's (est, var) go to a pinned host buffer, one sync a chunk.
-Under any profiler ``sgs`` shows as spans (``utils/spans.py``):
-``mcmc.sgs`` a call, holding ``.prepare`` (the transforms, the path),
-``.eager`` (the first chunk, the tail, a CPU grid's every chunk),
-``.capture``, one ``.chunk`` a replayed chunk (its ``.replay``; with host
-draws also ``.wait`` for the card and the host's ``.draw``) and
-``.finish`` (the inverse transform); ``.draw`` is the host's draws, a
-chunk's on the host path, and on the card the one draw and upload of a
-bed.  A chunk drawn on the card counts one launch of
+How the chunks reach the device: one runner (``_run_chunks``) takes a
+chunk body, ``sgs``'s (solve, then draw and scatter) or ``krige``'s
+(solve, then est and var into device maps read back once at the end).
+Eagerly it launches every chunk from Python (``_sgs_loop_eager``,
+``_krige_loop_eager``): the plain versions, which CPU grids run.  On the
+card, as the JAX package's jitted ``batch_cell`` and ``scatter`` do, it
+captures the body as one CUDA graph a call (``_sgs_loop_captured``,
+``_krige_loop_captured``): the first chunk runs eagerly (it warms the
+sort's and the solver's workspaces), every later full chunk is the copy
+of its cells and a replay, with no wait, and the last ``n mod chunk``
+cells run eagerly; the captured loops give the eager loops' bits.  Only a
+chunk that lives on the device whole is captured: an ``sgs`` loop given a
+host ``draw`` runs eagerly.  Under any profiler the runner shows as spans
+(``utils/spans.py``): ``.eager`` (the first chunk, the tail, a CPU grid's
+every chunk), ``.capture`` and one ``.chunk`` holding its ``.replay`` a
+replayed chunk; ``sgs`` adds ``mcmc.sgs`` a call, holding ``.prepare``
+(the transforms, the path), ``.draw`` (the bed's draw and upload on the
+card, a chunk's draws on the host) and ``.finish`` (the inverse
+transform).  A chunk drawn on the card counts one launch of
 ``ops/bounded_draw_kernel.bounded_draw`` (``.launches``), replays
-included.
+included (``utils/graphs.CountedGraph``).
 
 Random stream: the host generator is seeded with the same numpy uint32
 scalar as the JAX package's (the last word of its key data, ``seed mod
@@ -68,10 +67,9 @@ import torch
 from ..ops.bounded_draw_kernel import bounded_draw
 from ..ops.covariance import CovarianceSpec, _f32, make_rotation_matrix
 from ..ops.kriging import ok_solve_masked, sk_solve_masked
-from ..ops.launch_counts import uncounted
 from ..ops.neighbors import octant_sector, octant_select
 from ..ops.transforms import NormalScoreTransform
-from ..utils.graphs import capture_graph
+from ..utils.graphs import CountedGraph, capture_graph
 from ..utils.rng import resolve_device, resolve_seed
 from ..utils.spans import span
 
@@ -213,12 +211,6 @@ def _solve(p, zg, ii, jj, radius):
                      p["nugget"], _f32(radius), p["global_mean"])
 
 
-def _solve_chunk(p, zg, ii, jj, radius):
-    """(est, var) of the cells (ii, jj) as float64 host arrays: one sync."""
-    out = torch.stack(_solve(p, zg, ii, jj, radius)).cpu().numpy()
-    return out.astype(float)
-
-
 def _host_draws(rng, bounds):
     """``sgs``'s draws on the host: ``draw(cells, est, var)``, the float64
     draws at ``cells`` given (est, var), from ``rng`` chunk by chunk;
@@ -279,6 +271,28 @@ class _CardDraws:
                      *(self.bounds or (None, None)))
 
 
+def _host_scatter(draw):
+    """A host ``draw(cells, est, var) -> ndarray`` as a chunk's scatter:
+    (est, var) to the host in float64 (one sync), the draws there, written
+    into the grid."""
+
+    def scatter(zg, cells, est, var):
+        est, var = torch.stack([est, var]).cpu().numpy().astype(float)
+        with span("mcmc.sgs.draw"):
+            draws = draw(cells.cpu().numpy(), est, var)
+        zg[cells.unbind(1)] = torch.as_tensor(draws, dtype=torch.float32,
+                                              device=zg.device)
+
+    return scatter
+
+
+def _bed_draws(rng, path, bounds, zg):
+    """``sgs``'s draws for the grid ``zg``: the card's (``_CardDraws``) on
+    a CUDA grid, the host's chunk by chunk (``_host_draws``) elsewhere."""
+    return (_CardDraws(rng, path, bounds, zg) if zg.device.type == "cuda"
+            else _host_draws(rng, bounds))
+
+
 @contextlib.contextmanager
 def _batched_lu(device):
     """For the call, the kriging solves' batched LU from cuBLAS on the
@@ -297,163 +311,83 @@ def _batched_lu(device):
         torch.backends.cuda.preferred_linalg_library(before)
 
 
-def _sgs_loop_eager(p, zg, path, radius, chunk, draw):
-    """The SGS chunk loop with every op launched from Python, the plain
-    version of ``_sgs_loop_captured`` and what CPU grids run: a chunk's
-    (est, var) to the host, ``draw(cells, est, var)`` there, the draws
-    scattered into ``zg``; or, with ``sgs``'s card draws
-    (``_CardDraws``), the chunk drawn and scattered on ``zg``'s device."""
-    with span("mcmc.sgs.eager"):
-        path_t = torch.as_tensor(np.ascontiguousarray(path),
-                                 dtype=torch.long, device=zg.device)
-        for start in range(0, path.shape[0], chunk):
-            cells = path_t[start: start + chunk]
-            if isinstance(draw, _CardDraws):
-                draw.scatter(zg, cells, *_solve(p, zg, *cells.unbind(1),
-                                                radius))
-                continue
-            est, var = _solve_chunk(p, zg, *cells.unbind(1), radius)
-            with span("mcmc.sgs.draw"):
-                draws = draw(path[start: start + chunk], est, var)
-            zg[cells.unbind(1)] = torch.as_tensor(draws, dtype=torch.float32,
-                                                  device=zg.device)
+def _run_chunks(run, path, C, device, capture):
+    """``run(cells)`` over the ``C``-cell chunks of ``path`` ((n, 2) cells),
+    which it returns as an int64 tensor on ``device``.  With ``capture``
+    None every chunk is launched from Python; else the first chunk runs
+    eagerly, ``run`` on a fixed (C, 2) cell buffer is captured once
+    (``utils/graphs.CountedGraph``) and replayed for every later full
+    chunk, and the last ``n mod C`` cells run eagerly.  Fewer than two
+    full chunks have nothing to replay and run eagerly."""
+    path_t = torch.as_tensor(np.ascontiguousarray(path), dtype=torch.long,
+                             device=device)
+    n = path_t.shape[0]
+    full = 0 if capture is None else n // C
+
+    def eager(lo, hi):
+        with span("mcmc.sgs.eager"):
+            for start in range(lo, hi, C):
+                run(path_t[start: start + C])
+
+    if full < 2:
+        eager(0, n)
+        return path_t
+    eager(0, C)
+    this = path_t[C: 2 * C].clone()
+    with span("mcmc.sgs.capture"):
+        graph = CountedGraph(capture, lambda: run(this))
+    for k in range(1, full):
+        with span("mcmc.sgs.chunk"), span("mcmc.sgs.replay"):
+            if k > 1:
+                this.copy_(path_t[k * C: (k + 1) * C])
+            graph.replay()
+    if n > full * C:
+        eager(full * C, n)
+    return path_t
 
 
 def _sgs_loop_captured(p, zg, path, radius, chunk, draw,
                        capture=capture_graph):
-    """``_sgs_loop_eager``'s bits from one captured chunk (module
-    docstring): the first chunk eagerly, then ``capture(body)`` of a
-    chunk on fixed buffers replayed for every later full chunk
-    (``_card_replays`` with ``sgs``'s card draws, else
-    ``_host_replays``), then the last ``n mod chunk`` cells eagerly.  A
-    path of fewer than two full chunks has nothing to replay and runs
-    eagerly."""
-    n, C = path.shape[0], int(chunk)
-    full = n // C
-    if full < 2:
-        return _sgs_loop_eager(p, zg, path, radius, C, draw)
-    _sgs_loop_eager(p, zg, path[:C], radius, C, draw)
-    replays = (_card_replays if isinstance(draw, _CardDraws)
-               else _host_replays)
-    replays(p, zg, path, radius, C, full, draw, capture)
-    if n > full * C:
-        _sgs_loop_eager(p, zg, path[full * C:], radius, C, draw)
+    """The SGS chunk loop (``_run_chunks``): each chunk solved, then drawn
+    and scattered into ``zg`` by ``sgs``'s card draws (``_CardDraws``) or
+    by a host ``draw(cells, est, var)`` (``_host_scatter``).  Only the
+    card draws' chunk lives on the device whole and is captured: with a
+    host ``draw`` the loop is the eager one."""
+    card = isinstance(draw, _CardDraws)
+    scatter = draw.scatter if card else _host_scatter(draw)
+    _run_chunks(lambda cells: scatter(zg, cells, *_solve(
+        p, zg, *cells.unbind(1), radius)), path, int(chunk), zg.device,
+        capture if card else None)
 
 
-def _card_replays(p, zg, path, radius, C, full, draws, capture):
-    """Full chunks 1 .. ``full`` - 1 of ``path`` with ``sgs``'s card draws:
-    a captured chunk that solves, draws and scatters on the device, from
-    Python a copy of its cells and the replay, with no wait.  Each replay
-    counts the launches its capture counted (``ops/launch_counts.py``)."""
-    cells_t = torch.as_tensor(path[C: full * C], dtype=torch.long,
-                              device=zg.device)
-    this = torch.empty((C, 2), dtype=torch.long, device=zg.device)
-
-    def body():
-        draws.scatter(zg, this, *_solve(p, zg, *this.unbind(1), radius))
-
-    this.copy_(cells_t[:C])
-    with span("mcmc.sgs.capture"):
-        graph, launches = uncounted(capture, body)
-    for k in range(full - 1):
-        with span("mcmc.sgs.chunk"), span("mcmc.sgs.replay"):
-            if k:
-                this.copy_(cells_t[k * C: (k + 1) * C])
-            graph.replay()
-        for counter, count in launches:
-            counter.launches += count
-
-
-def _host_replays(p, zg, path, radius, C, full, draw, capture):
-    """Full chunks 1 .. ``full`` - 1 of ``path`` with host draws: a
-    captured chunk on fixed buffers (the last chunk's scatter, then this
-    chunk's solve), from Python a copy of its cells, the replay, (est,
-    var) to a pinned host buffer (the one sync), ``draw`` there and the
-    draws back from another; the last replayed chunk's draws scattered
-    after the loop."""
-    dev = zg.device
-    pin = dev.type == "cuda"
-    path_t = torch.as_tensor(path[:full * C], dtype=torch.long, device=dev)
-    cells = torch.empty((2 * C, 2), dtype=torch.long, device=dev)
-    last, this = cells[:C].unbind(1), cells[C:].unbind(1)
-    draws = torch.empty(C, dtype=torch.float32, device=dev)
-    out = torch.empty((2, C), dtype=torch.float32, device=dev)
-    draws_h = torch.empty(C, dtype=torch.float32, pin_memory=pin)
-    out_h = torch.empty((2, C), dtype=torch.float32, pin_memory=pin)
-
-    def body():
-        zg[last] = draws
-        out[0], out[1] = _solve(p, zg, *this, radius)
-
-    cells.copy_(path_t[:2 * C])
-    draws.copy_(zg[last])  # the first chunk's, which the first replay rewrites
-    with span("mcmc.sgs.capture"):
-        graph = capture(body)
-    for k in range(1, full):
-        with span("mcmc.sgs.chunk"):
-            with span("mcmc.sgs.replay"):
-                if k > 1:
-                    cells.copy_(path_t[(k - 1) * C: (k + 1) * C])
-                graph.replay()
-            with span("mcmc.sgs.wait"):
-                out_h.copy_(out)  # waits for the replay
-                est, var = out_h.numpy().astype(float)
-            with span("mcmc.sgs.draw"):
-                draws_h.numpy()[:] = draw(path[k * C: (k + 1) * C], est,
-                                          var)
-            draws.copy_(draws_h, non_blocking=True)
-    zg[this] = draws  # the last replayed chunk's draws
-
-
-def _krige_loop_eager(p, zg, cells, radius, chunk, est_map, var_map):
-    """``krige``'s chunk loop with every op launched from Python, the plain
-    version of ``_krige_loop_captured`` and what CPU grids run: each
-    chunk's (est, var) to the host and into ``est_map`` / ``var_map``."""
-    cells_t = torch.as_tensor(cells, dtype=torch.long, device=zg.device)
-    for start in range(0, cells.shape[0], chunk):
-        cc = cells[start: start + chunk]
-        est, var = _solve_chunk(p, zg,
-                                *cells_t[start: start + chunk].unbind(1),
-                                radius)
-        est_map[cc[:, 0], cc[:, 1]] = est
-        var_map[cc[:, 0], cc[:, 1]] = var
+def _sgs_loop_eager(p, zg, path, radius, chunk, draw):
+    """``_sgs_loop_captured`` with every chunk launched from Python: the
+    plain version, which CPU grids run."""
+    _sgs_loop_captured(p, zg, path, radius, chunk, draw, capture=None)
 
 
 def _krige_loop_captured(p, zg, cells, radius, chunk, est_map, var_map,
                          capture=capture_graph):
-    """``_krige_loop_eager``'s bits from one captured chunk: the chunks do
-    not depend on each other, so each writes its (est, var) into device
-    maps, read back once at the end, and a replayed chunk is a copy of its
-    cells and the replay, with no sync.  The first chunk runs eagerly,
-    then ``capture(body)`` is replayed for every later full chunk, then
-    the last ``n mod chunk`` cells run eagerly."""
-    n, C = cells.shape[0], int(chunk)
-    full = n // C
-    if full < 2:
-        return _krige_loop_eager(p, zg, cells, radius, C, est_map, var_map)
-    cells_t = torch.as_tensor(cells, dtype=torch.long, device=zg.device)
+    """``krige``'s chunk loop (``_run_chunks``): the chunks do not depend
+    on each other, so each writes its (est, var) into (2, H, W) device
+    maps, read back once at the end into ``est_map`` / ``var_map``."""
     maps = torch.zeros((2,) + tuple(zg.shape), dtype=torch.float32,
                        device=zg.device)
-    this = torch.empty((C, 2), dtype=torch.long, device=zg.device)
 
-    def solve(ii, jj):
+    def run(c):
+        ii, jj = c.unbind(1)
         maps[:, ii, jj] = torch.stack(_solve(p, zg, ii, jj, radius))
 
-    def body():
-        solve(*this.unbind(1))
+    cells_t = _run_chunks(run, cells, int(chunk), zg.device, capture)
+    out = maps[:, cells_t[:, 0], cells_t[:, 1]].cpu().numpy().astype(float)
+    est_map[cells[:, 0], cells[:, 1]], var_map[cells[:, 0], cells[:, 1]] = out
 
-    this.copy_(cells_t[:C])
-    body()
-    graph = capture(body)
-    for k in range(1, full):
-        this.copy_(cells_t[k * C: (k + 1) * C])
-        graph.replay()
-    if n > full * C:
-        solve(*cells_t[full * C:].unbind(1))
-    est, var = maps[:, cells_t[:, 0], cells_t[:, 1]].cpu().numpy().astype(
-        float)
-    est_map[cells[:, 0], cells[:, 1]] = est
-    var_map[cells[:, 0], cells[:, 1]] = var
+
+def _krige_loop_eager(p, zg, cells, radius, chunk, est_map, var_map):
+    """``_krige_loop_captured`` with every chunk launched from Python: the
+    plain version, which CPU grids run."""
+    _krige_loop_captured(p, zg, cells, radius, chunk, est_map, var_map,
+                         capture=None)
 
 
 def _chunk_loops(device):
@@ -503,8 +437,7 @@ def sgs(xx, yy, grid, variogram, radius=100e3, num_points=20, ktype="ok",
                 tb = _transformed_bounds(p, bounds)
                 zg = _score_grid(p, device)
 
-        draw = (_CardDraws(rng, path, tb, zg) if device.type == "cuda"
-                else _host_draws(rng, tb))
+        draw = _bed_draws(rng, path, tb, zg)
         with _batched_lu(device):
             _chunk_loops(device)[0](p, zg, path, radius, chunk, draw)
 

@@ -9,7 +9,7 @@ graph's dump or a profile shows them.  ``COUNTED`` holds every dispatcher
 of the modules imported so far, so any dispatcher that has run is in it.
 A CUDA graph's capture runs no kernel and a replay no Python, so a
 captured loop captures through ``uncounted`` and adds, a replay, the
-launches it returns.
+launches it returns: ``utils/graphs.CountedGraph`` does both.
 """
 
 from __future__ import annotations

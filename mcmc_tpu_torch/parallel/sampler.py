@@ -82,8 +82,7 @@ from ..models.chain_crf import (ChainState, CRFConsts, CRFStatic, IMPLS,
                                 host_copy, init_state, make_step)
 from ..models.chain_sgs import (ChainSGS, SGSConsts, SGSState, SGSStatic,
                                 make_sgs_step, sgs_init_state)
-from ..ops.launch_counts import uncounted
-from ..utils.graphs import capture_graph
+from ..utils.graphs import CountedGraph, capture_graph
 from ..utils.progress import MultiChainProgress
 from ..utils.rng import (PER_CHAIN_KIND, PerChainStreams, RowSlice,
                          generator_kind, generator_state, is_seed_list,
@@ -239,31 +238,29 @@ def run_chains_eager(static, consts, states, n_steps: int,
 
 @dataclasses.dataclass
 class SegmentGraph:
-    """A captured chunk of steps: the graph, the staging buffers it writes
-    its trace rows to, and the launches each counted dispatcher made at its
-    capture, as (dispatcher, count) pairs (``ops/launch_counts``).  ``key``
-    names the operands it ran by identity; ``operands`` holds them, so no
-    other object takes their identity, nor another tensor their memory,
-    while the graph may replay."""
+    """A captured chunk of steps: the graph (a ``utils/graphs.CountedGraph``,
+    whose replays count the launches of its capture) and the staging
+    buffers it writes its trace rows to.  ``key`` names the operands it
+    ran by identity; ``operands`` holds them, so no other object takes
+    their identity, nor another tensor their memory, while the graph may
+    replay."""
 
     key: tuple
     operands: tuple
-    graph: object
+    graph: CountedGraph
     staging: dict
-    launches: tuple
-    replays: int = 0
 
     @property
     def steps(self) -> int:
         return next(iter(self.staging.values())).shape[0]
 
-    def replay(self) -> None:
-        """One replay; each dispatcher's count moves as its launches in
-        the capture did, since a replay runs no Python."""
-        self.graph.replay()
-        for counter, n in self.launches:
-            counter.launches += n
-        self.replays += 1
+    @property
+    def replays(self) -> int:
+        return self.graph.replays
+
+    @property
+    def launches(self) -> tuple:
+        return self.graph.launches
 
 
 class GraphCache:
@@ -312,8 +309,7 @@ def _advance(step, consts, states, rng, save_beds: bool, rows: dict) -> None:
 def _capture_segment(step, consts, states, rng, save_beds, bufs, capture,
                      key, operands) -> SegmentGraph:
     """Capture ``CHUNK_STEPS`` steps of ``_advance`` into staging buffers,
-    with ``capture(body, generator)``; the launch counters go back to
-    where they stood, since the capture ran nothing."""
+    with ``capture(body, generator)`` (``utils/graphs.CountedGraph``)."""
     staging = {k: torch.empty((CHUNK_STEPS,) + tuple(b.shape[1:]),
                               dtype=b.dtype, device=b.device)
                for k, b in bufs.items()}
@@ -324,11 +320,11 @@ def _capture_segment(step, consts, states, rng, save_beds, bufs, capture,
                      {k: s[i] for k, s in staging.items()})
 
     with span("mcmc.run_chains.capture"):
-        graph, counted = uncounted(
+        graph = CountedGraph(
             capture, body, rng.generator if isinstance(rng, RowSlice)
             else rng if isinstance(rng, torch.Generator) else None)
     return SegmentGraph(key=key, operands=operands, graph=graph,
-                        staging=staging, launches=counted)
+                        staging=staging)
 
 
 def run_chains_chunked(static, consts, states, n_steps: int,
@@ -378,7 +374,7 @@ def run_chains_chunked(static, consts, states, n_steps: int,
             graphs.graph = seg
     while seg is not None and n_steps - t >= chunk:
         with span("mcmc.run_chains.replay"):
-            seg.replay()
+            seg.graph.replay()
             for k, b in bufs.items():
                 b[t:t + chunk].copy_(seg.staging[k])
         t += chunk

@@ -8,6 +8,8 @@ from typing import Callable
 
 import torch
 
+from ..ops.launch_counts import uncounted
+
 
 def capture_graph(body: Callable, generator=None, keep_graph: bool = False):
     """A ``torch.cuda.CUDAGraph`` of ``body()``'s CUDA work, captured on a
@@ -25,3 +27,22 @@ def capture_graph(body: Callable, generator=None, keep_graph: bool = False):
     if keep_graph:
         graph.instantiate()
     return graph
+
+
+class CountedGraph:
+    """The graph ``capture(body, *args)`` returns (``capture_graph``, or a
+    stand-in with a ``replay()``), captured through
+    ``ops/launch_counts.uncounted``: a capture runs no kernel and a replay
+    no Python, so each ``replay()`` adds the launches each dispatcher
+    counted in the capture (``launches``, (dispatcher, count) pairs), and
+    ``replays`` counts the replays."""
+
+    def __init__(self, capture: Callable, body: Callable, *args):
+        self.graph, self.launches = uncounted(capture, body, *args)
+        self.replays = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for counter, n in self.launches:
+            counter.launches += n
+        self.replays += 1

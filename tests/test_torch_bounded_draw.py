@@ -9,7 +9,7 @@ bounded_draw_kernel.py`` and ``geostats/sgs.py``'s card path), on the CPU.
 - The stream: one draw of the bed's uniforms (normals) after the path's
   permutation is, bit for bit, what the host's chunk-by-chunk
   ``truncnorm.rvs`` (``rng.normal``) calls take.
-- The card path's loops (``_CardDraws``, ``_card_replays``) run here with
+- The card path's loops (``_CardDraws`` in ``_run_chunks``) run here with
   the plain version and ``tests/test_torch_geostats_graph.py``'s stub
   capture: the captured loop bit for bit the eager loop with the same
   draws, over every path length, bounded and not; the bed the host
@@ -230,8 +230,9 @@ def test_card_path_bed_is_the_host_bed(problem):
 
 
 def test_card_path_spans(problem):
-    """On the card path a replayed chunk's span holds its replay alone:
-    no wait and no host draw; ``.draw`` is the bed's one draw and upload."""
+    """On the card path a replayed chunk's span holds its replay alone, no
+    host draw; ``.draw`` is the bed's one draw and upload; the first chunk
+    and the tail are one ``.eager`` each."""
     p = _prepared(problem)
     n = 3 * C + 5
     path = p["cells"][:n]
@@ -240,11 +241,10 @@ def test_card_path_spans(problem):
     chunks = [x for x in found if x[2] == "mcmc.sgs.chunk"]
     assert len(chunks) == stub.replays == n // C - 1
     for chunk in chunks:
-        assert len(_inside(found, chunk, "mcmc.sgs.replay")) == 1
-        assert not _inside(found, chunk, "mcmc.sgs.wait")
-        assert not _inside(found, chunk, "mcmc.sgs.draw")
+        assert [x[2] for x in found if chunk[0] <= x[0] and x[1] <= chunk[1]
+                and x != chunk] == ["mcmc.sgs.replay"]
     assert _count(found, "mcmc.sgs.draw") == 1
-    assert _count(found, "mcmc.sgs.wait") == 0
+    assert _count(found, "mcmc.sgs.eager") == 2
 
 
 def test_card_draws_refuse_crossed_bounds(problem):

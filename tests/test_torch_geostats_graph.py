@@ -2,20 +2,24 @@
 captured CUDA graph a chunk (``mcmc_tpu_torch/geostats/sgs.py``).
 
 A CUDA graph exists only on the card, so here the captured loops' own
-code (the fixed buffers, the last chunk's scatter at the head of the
-next, the eager first chunk, the replays, the eager remainder, ``krige``'s
-device maps read back once) runs on the CPU with a stub in place of
-``capture_graph``, as ``tests/test_torch_graph_loop.py`` does for the
-segment scan.  The stub does what a capture and a replay do to
-everything the loop can see: the capture runs the chunk's Python once and
-puts the grid back as it was, since a capture runs no device work; a
-replay runs the chunk's work.  Every case is held bitwise to the eager
-loop (the plain version, which ``device="cpu"`` runs), over path lengths
-of none, less than a chunk, the eager first chunk alone, one replayed
-chunk after it, and replayed chunks with a remainder; and one case to
-the JAX package's ``sgs`` within ``test_torch_geostats.BED_ATOL``.  The
-card's own capture is held to the eager loop by the ``cuda``-marked
-test in ``tests/test_torch_cuda.py``.
+code (the runner's eager first chunk, its fixed cell buffer, the replays,
+the eager remainder, ``krige``'s device maps read back once) runs on the
+CPU with a stub in place of ``capture_graph``, as
+``tests/test_torch_graph_loop.py`` does for the segment scan.  The stub
+does what a capture and a replay do to everything the loop can see: the
+capture runs the chunk's Python once and puts the grid back as it was,
+since a capture runs no device work; a replay runs the chunk's work.
+Inside the ``captured`` fixture ``sgs`` draws as on the card
+(``_CardDraws``, whose plain version runs here), since only a chunk that
+lives on the device whole is captured.  Every case is held bitwise to the
+eager loop with the same draws (the plain version, which ``device="cpu"``
+runs), over path lengths of none, less than a chunk, the eager first
+chunk alone, one replayed chunk after it, and replayed chunks with a
+remainder; the captured loop given the host's draws is the eager loop and
+captures nothing; and one case is held to the JAX package's ``sgs``
+within ``test_torch_geostats.BED_ATOL``.  The card's own capture is held
+to the eager loop by the ``cuda``-marked test in
+``tests/test_torch_cuda.py``.
 """
 
 import functools
@@ -23,6 +27,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 from mcmc_tpu import geostats as jgeo
 from mcmc_tpu_torch import geostats as tgeo
@@ -71,10 +76,17 @@ def problem():
     return make_synthetic_problem(H=32, W=36)
 
 
+def _card_draws(monkeypatch):
+    """Inside, CPU calls of ``sgs`` draw as on the card (``_CardDraws``)."""
+    monkeypatch.setattr(tsgs, "_bed_draws", tsgs._CardDraws)
+
+
 @pytest.fixture
 def captured(monkeypatch):
     """Inside, CPU calls of ``sgs`` and ``krige`` run the captured loops
-    with the stub capture; returns the stub."""
+    with the stub capture, ``sgs`` with the card's draws; returns the
+    stub."""
+    _card_draws(monkeypatch)
     stub = StubCapture()
     score_grid = tsgs._score_grid
 
@@ -104,9 +116,11 @@ def _bits(a):
 
 def _sgs_both(p, request, vario, n=None, **kw):
     """The eager and the stub-captured ``sgs`` of one call (``n`` cells,
-    or every cell without data), and the stub."""
+    or every cell without data), both with the card's draws, and the
+    stub."""
     kw = dict(KW, seed=5, sim_mask=None if n is None else _mask(p, n), **kw)
     args = (p["xx"], p["yy"], p["cond_bed"], vario)
+    _card_draws(request.getfixturevalue("monkeypatch"))
     want = tgeo.sgs(*args, device="cpu", **kw)
     stub = request.getfixturevalue("captured")
     return want, tgeo.sgs(*args, device="cpu", **kw), stub
@@ -119,10 +133,11 @@ def _bounds(p):
 @pytest.mark.parametrize("n", LENGTHS)
 def test_captured_sgs_is_the_eager_loop_at_every_path_length(problem,
                                                              request, n):
-    """Bounded ordinary kriging over each path length: the bed bit for
-    bit, one capture where a full chunk follows the first, a replay for
-    each full chunk after the first."""
-    want, got, stub = _sgs_both(problem, request, EXP, n,
+    """Bounded simple kriging with a Matérn covariance over each path
+    length (``tests/test_torch_bounded_draw.py`` runs ordinary kriging's
+    loop at each): the bed bit for bit, one capture where a full chunk
+    follows the first, a replay for each full chunk after the first."""
+    want, got, stub = _sgs_both(problem, request, MATERN, n, ktype="sk",
                                 bounds=_bounds(problem))
     np.testing.assert_array_equal(_bits(got), _bits(want))
     full = n // C
@@ -143,6 +158,31 @@ def test_captured_sgs_is_the_eager_loop(problem, request, ktype, bounded,
     np.testing.assert_array_equal(_bits(got), _bits(want))
     n = int(np.isnan(p["cond_bed"]).sum())
     assert (stub.captures, stub.replays) == (1, n // C - 1)
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_captured_loop_with_host_draws_is_the_eager_loop(problem, n):
+    """``_sgs_loop_captured`` given a host ``draw(cells, est, var)`` (the
+    CPU's scipy draws) runs the eager loop: no capture, and the grid bit
+    for bit the eager loop's with the same draws."""
+    p = tsgs._prepare(problem["xx"], problem["cond_bed"], EXP, None,
+                      KW["num_points"], "ok", KW["half_window"],
+                      torch.device("cpu"))
+    path = p["cells"][np.random.default_rng(2).permutation(
+        len(p["cells"]))][:n]
+    bounds = tuple(np.asarray(p["nst"].transform_np(b))
+                   for b in _bounds(problem))
+    grids, stub = [], StubCapture()
+    for loop in (tsgs._sgs_loop_eager, functools.partial(
+            tsgs._sgs_loop_captured, capture=stub)):
+        zg = tsgs._score_grid(p, torch.device("cpu"))
+        stub.grids.append(zg)
+        loop(p, zg, path, KW["radius"], C,
+             tsgs._host_draws(np.random.default_rng(5), bounds))
+        grids.append(zg.numpy())
+    np.testing.assert_array_equal(_bits(grids[1]), _bits(grids[0]))
+    assert (stub.captures, stub.replays) == (0, 0)
+    assert np.isfinite(grids[1][tuple(path.T)]).all()
 
 
 @pytest.mark.parametrize("n", LENGTHS + (None,))

@@ -32,7 +32,7 @@ SGS_PARENTS = {"mcmc.sgs": None, "mcmc.sgs.prepare": "mcmc.sgs",
                "mcmc.sgs.eager": "mcmc.sgs", "mcmc.sgs.capture": "mcmc.sgs",
                "mcmc.sgs.chunk": "mcmc.sgs", "mcmc.sgs.finish": "mcmc.sgs",
                "mcmc.sgs.replay": "mcmc.sgs.chunk",
-               "mcmc.sgs.wait": "mcmc.sgs.chunk",
+               "mcmc.sgs.draw": "mcmc.sgs",
                "mcmc.sgs.prepare.fit": "mcmc.sgs.prepare",
                "mcmc.sgs.prepare.path": "mcmc.sgs.prepare",
                "mcmc.sgs.prepare.bounds": "mcmc.sgs.prepare"}
@@ -86,31 +86,29 @@ def _raise(name):
 
 @pytest.mark.parametrize("n", LENGTHS)
 def test_sgs_spans_follow_the_chunk_loop(problem, captured, n):
-    """One ``mcmc.sgs``, ``prepare`` and ``finish`` a call; a ``capture``
-    and ``full - 1`` ``chunk`` spans where a full chunk follows the eager
-    first one, as many as the stub's replays, each holding one ``replay``,
-    one ``wait`` and one ``draw``; an ``eager`` span for the first chunk
-    and for a tail, and a ``draw`` for every chunk of the path."""
+    """The card path's shape (``sgs`` draws as on the card in the
+    ``captured`` fixture): one ``mcmc.sgs``, ``prepare``, ``draw`` (the
+    bed's one draw) and ``finish`` a call; a ``capture`` and ``full - 1``
+    ``chunk`` spans where a full chunk follows the eager first one, as
+    many as the stub's replays, each holding one ``replay`` and no
+    ``draw``; an ``eager`` span for the first chunk and for a tail."""
     _, found = _profiled(_sgs_call(problem, n))
     full = n // C
     assert (_count(found, "mcmc.sgs"), _count(found, "mcmc.sgs.prepare"),
-            _count(found, "mcmc.sgs.finish")) == (1, 1, 1)
+            _count(found, "mcmc.sgs.draw"),
+            _count(found, "mcmc.sgs.finish")) == (1, 1, 1, 1)
     assert [_count(found, name) for name in PREPARE_PARTS] == [1, 1, 1]
     assert _count(found, "mcmc.sgs.capture") == captured.captures \
         == (1 if full >= 2 else 0)
     chunks = [x for x in found if x[2] == "mcmc.sgs.chunk"]
     assert len(chunks) == captured.replays == max(full - 1, 0)
     for chunk in chunks:
-        for name in ("mcmc.sgs.replay", "mcmc.sgs.wait", "mcmc.sgs.draw"):
-            assert len(_inside(found, chunk, name)) == 1, name
+        assert len(_inside(found, chunk, "mcmc.sgs.replay")) == 1
+        assert not _inside(found, chunk, "mcmc.sgs.draw")
     eager = 1 if full < 2 else 1 + (n > full * C)
     assert _count(found, "mcmc.sgs.eager") == eager
-    assert _count(found, "mcmc.sgs.draw") == -(-n // C)
     for _, _, name, parent in found:
-        if name == "mcmc.sgs.draw":
-            assert parent in ("mcmc.sgs.chunk", "mcmc.sgs.eager")
-        else:
-            assert parent == SGS_PARENTS[name], name
+        assert parent == SGS_PARENTS[name], name
 
 
 @pytest.mark.parametrize("bounded", [True, False])

@@ -15,19 +15,18 @@ cell up as ``cardbench/run.py`` does and runs its window with
 - ``device_annotations``: the profiler's device-side copies of the spans,
   and how many carry the user-annotation flag that keeps them out of the
   card's busy time;
-- what the spans give: the mean ``mcmc.sgs.draw``, ``.wait`` and
-  ``.replay`` (``draw_us``, ``wait_us``, ``launch_us``; on the card a
-  chunk draws on the device, so it has no ``.wait`` or ``.draw``, and
-  ``draw_us`` is the bed's one draw and upload, ``host_draws_a_bed``
-  ``.draw`` spans a bed); a bed's fixed cost, each ``mcmc.sgs`` less the
-  ``mcmc.sgs.chunk`` spans in it (``bed_fixed_ms``), its parts beside it
-  (``bed_fixed_parts_ms``: the ms a bed of each span outside the chunks,
-  ``prepare`` and its ``fit``, ``path`` and ``bounds``, ``eager``,
-  ``capture``, ``draw``, ``finish``), and the beds' ``mcmc.sgs`` against
-  the harness's ``cardbench.bed``; a segment's
-  prologue, each ``mcmc.run_chains`` from its start to its first
-  ``mcmc.run_chains.replay`` (``segment_prologue_us``), beside
-  ``segment_gap_ms.farm``;
+- what the spans give: the mean ``mcmc.sgs.draw`` and ``.replay``
+  (``draw_us``, ``launch_us``; on the card a chunk draws on the device,
+  so it has no ``.draw``, and ``draw_us`` is the bed's one draw and
+  upload, ``host_draws_a_bed`` ``.draw`` spans a bed); a bed's fixed
+  cost, each ``mcmc.sgs`` less the ``mcmc.sgs.chunk`` spans in it
+  (``bed_fixed_ms``), its parts beside it (``bed_fixed_parts_ms``: the
+  ms a bed of each span outside the chunks, ``prepare`` and its ``fit``,
+  ``path`` and ``bounds``, ``eager``, ``capture``, ``draw``,
+  ``finish``), and the beds' ``mcmc.sgs`` against the harness's
+  ``cardbench.bed``; a segment's prologue, each ``mcmc.run_chains`` from
+  its start to its first ``mcmc.run_chains.replay``
+  (``segment_prologue_us``), beside ``segment_gap_ms.farm``;
 - ``card_draw_share``: the window's chunks drawn on the card (launches of
   ``ops/bounded_draw_kernel.bounded_draw``, replays included) over all
   its beds' chunks, traced or not;
@@ -94,7 +93,6 @@ def span_numbers(spans) -> dict:
                          "total_ms": sum(v) * 1e-3}
                      for n, v in sorted(by.items())}}
     for key, name in (("draw_us", "mcmc.sgs.draw"),
-                      ("wait_us", "mcmc.sgs.wait"),
                       ("launch_us", "mcmc.sgs.replay"),
                       ("chunk_us", "mcmc.sgs.chunk")):
         out[key] = _mean(by.get(name, []))
